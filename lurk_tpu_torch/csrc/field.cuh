@@ -73,6 +73,34 @@ FE_FN void add(uint32_t r[N], const uint32_t a[N], const uint32_t b[N],
   cond_sub_p(r, s, (uint32_t)c, p);
 }
 
+// r = a - b mod p, for canonical a and b. r may alias a or b.
+FE_FN void sub(uint32_t r[N], const uint32_t a[N], const uint32_t b[N],
+               const uint32_t p[N]) {
+  uint32_t d[N];
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    uint64_t v = (uint64_t)a[i] - b[i] - borrow;
+    d[i] = (uint32_t)v;
+    borrow = (v >> 32) & 1;
+  }
+  const uint32_t mask = 0u - (uint32_t)borrow;   // add p back on a borrow
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    c += (uint64_t)d[i] + (p[i] & mask);
+    r[i] = (uint32_t)c;
+    c >>= 32;
+  }
+}
+
+FE_FN bool is_zero(const uint32_t a[N]) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc |= a[i];
+  return acc == 0;
+}
+
 // r = a * b / R mod p (CIOS). Canonical for a < 2^256 and b < p (or
 // the other way round). r may alias a or b.
 FE_FN void mul(uint32_t r[N], const uint32_t a[N], const uint32_t b[N],

@@ -1,12 +1,17 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native code: CUDA kernels and host C++.
 
-``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ``ctypes``. Builds
-happen at first use (never on import), from the sources in this package
-only, into ``lurk_tpu_torch/_build/``, cached by a hash of every file in
-``csrc/`` and the flags. A build writes a file unique to the process and
-``os.replace``s it into place, so concurrent builds are safe. There is
-no fallback: without ``nvcc``, or when it fails, loading raises.
+Two routes, both into ``lurk_tpu_torch/_build/``, both cached by a hash
+of the sources and the flags, both at first use (never on import):
+
+- ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
+  shared library with a plain C interface (:func:`build`, :func:`load`,
+  several sources at once with :func:`build_many`);
+- ``csrc/host/<name>.cpp`` (host C++: generator derivation, SRS) is
+  compiled with ``g++`` (:func:`load_host`).
+
+A build writes a file unique to the process and ``os.replace``s it
+into place, so concurrent builds are safe. There is no fallback:
+without the compiler, or when it fails, building raises.
 """
 
 from __future__ import annotations
@@ -16,14 +21,24 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 import uuid
 from pathlib import Path
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).parent / "csrc"
+HOST_SRC = CSRC / "host"
 BUILD_DIR = Path(__file__).parent / "_build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17",
+             "-pthread"]
+BUILD_TIMEOUT_S = 600
+
+_HOST_LIBS: Dict[str, ctypes.CDLL] = {}
+_HOST_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -36,16 +51,21 @@ def nvcc() -> str:
     return path
 
 
-def _tag() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(CSRC.iterdir()):
+def _tag(flags: List[str], files: Iterable[Path]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for f in sorted(files):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return h.hexdigest()[:16]
 
 
 def library_path(name: str) -> Path:
-    return BUILD_DIR / f"{name}-{_tag()}.so"
+    files = [f for f in CSRC.iterdir() if f.is_file()]
+    return BUILD_DIR / f"{name}-{_tag(NVCC_FLAGS, files)}.so"
+
+
+def host_library_path(name: str) -> Path:
+    return BUILD_DIR / f"host-{name}-{_tag(GXX_FLAGS, HOST_SRC.iterdir())}.so"
 
 
 def build_log(name: str) -> str:
@@ -55,29 +75,118 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+class _Build:
+    """One compiler run into a unique temporary file, started at once;
+    its output goes to a log file beside it."""
+
+    def __init__(self, cmd: List[str], so: Path):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        self.so = so
+        unique = f"{os.getpid()}.{uuid.uuid4().hex}"
+        self.tmp = so.with_suffix(f".{unique}.tmp")
+        self.log = so.with_suffix(f".{unique}.log.tmp")
+        self.start = time.perf_counter()
+        with open(self.log, "w") as log:
+            self.proc = subprocess.Popen([*cmd, "-o", str(self.tmp)],
+                                         stdout=log, stderr=subprocess.STDOUT)
+
+    def done(self) -> bool:
+        return self.proc.poll() is not None or \
+            time.perf_counter() - self.start > BUILD_TIMEOUT_S
+
+    def finish(self) -> float:
+        """Once :meth:`done`: move the library into place and return the
+        seconds the build took; raises if the compiler failed or ran out
+        of time."""
+        seconds = time.perf_counter() - self.start
+        try:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            out = self.log.read_text()
+            if self.proc.returncode != 0:
+                raise RuntimeError(
+                    f"build failed: {self.so.name}: exit "
+                    f"{self.proc.returncode}\n{out}")
+            os.replace(self.log, self.so.with_suffix(".log"))
+            os.replace(self.tmp, self.so)
+        finally:
+            self.tmp.unlink(missing_ok=True)
+            self.log.unlink(missing_ok=True)
+        return seconds
+
+
+def _nvcc_cmd(name: str) -> List[str]:
+    return [nvcc(), *NVCC_FLAGS, str(CSRC / f"{name}.cu")]
+
+
+def build_many(names: Iterable[str]) -> Dict[str, float]:
+    """Compile every ``csrc/<name>.cu`` that is not built yet, one nvcc
+    per source, all started together. Returns the seconds each build
+    took (0.0 for one that was cached); raises, after every compiler has
+    ended, if any failed."""
+    names = list(dict.fromkeys(names))
+    builds = {n: _Build(_nvcc_cmd(n), library_path(n))
+              for n in names if not library_path(n).exists()}
+    return {n: 0.0 for n in names} | _finish_all(builds)
+
+
+def _finish_all(builds: Dict[str, _Build]) -> Dict[str, float]:
+    """Wait for every build, timing each to its own end; raise, after
+    all have ended, if any failed."""
+    times, errors = {}, []
+    pending = dict(builds)
+    while pending:
+        for n, b in list(pending.items()):
+            if b.done():
+                del pending[n]
+                try:
+                    times[n] = b.finish()
+                except RuntimeError as e:
+                    errors.append(str(e))
+        if pending:
+            time.sleep(0.05)
+    if errors:
+        raise RuntimeError("build failed:\n" + "\n".join(errors))
+    return times
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless it is built already; raises if
     nvcc fails."""
-    so = library_path(name)
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.{uuid.uuid4().hex}.tmp")
-    try:
-        out = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            timeout=600)
-        if out.returncode != 0:
-            raise RuntimeError(f"kernel build failed: {name}: nvcc exit "
-                               f"{out.returncode}\n{out.stdout}")
-        so.with_suffix(".log").write_text(out.stdout)
-        os.replace(tmp, so)
-    finally:
-        tmp.unlink(missing_ok=True)
-    return so
+    build_many([name])
+    return library_path(name)
 
 
 def load(name: str) -> ctypes.CDLL:
     """The library of ``csrc/<name>.cu``, built if needed."""
     return ctypes.CDLL(str(build(name)))
+
+
+def build_host() -> Dict[str, float]:
+    """Compile every ``csrc/host/*.cpp`` that is not built yet, one g++
+    per source, all started together; raises if g++ is missing or
+    fails. Returns the seconds each build took."""
+    names = [f.stem for f in sorted(HOST_SRC.glob("*.cpp"))
+             if not host_library_path(f.stem).exists()]
+    if not names:
+        return {}
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host C++ of lurk_tpu_torch "
+                           "cannot be built")
+    return _finish_all({n: _Build([gxx, *GXX_FLAGS,
+                                   str(HOST_SRC / f"{n}.cpp")],
+                                  host_library_path(n)) for n in names})
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/host/<name>.cpp``, loaded once per process;
+    the first call builds every host source that is not built yet."""
+    with _HOST_LOCK:
+        lib = _HOST_LIBS.get(name)
+        if lib is None:
+            build_host()
+            lib = _HOST_LIBS[name] = ctypes.CDLL(
+                str(host_library_path(name)))
+    return lib

@@ -31,6 +31,7 @@ LIMB_BITS = 16
 N_LIMBS = 16
 MASK = (1 << LIMB_BITS) - 1
 R_BITS = LIMB_BITS * N_LIMBS
+_MASK64 = (1 << 64) - 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +74,27 @@ def limbs_to_ints(limbs: np.ndarray) -> List[int]:
             for i in range(limbs.shape[0])]
 
 
+def ints_to_words(values) -> np.ndarray:
+    """Ints in [0, 2^256), as a (nested) sequence or object array, ->
+    ``uint32[..., 8]`` little-endian 32-bit words, by numpy operations
+    over all values at once."""
+    v = np.asarray(values, dtype=object)
+    limbs = np.empty((*v.shape, 4), dtype="<u8")
+    for k in range(4):
+        limbs[..., k] = ((v >> (64 * k)) & _MASK64).astype(np.uint64)
+    return limbs.view("<u4")
+
+
+def words_to_ints(words: np.ndarray) -> np.ndarray:
+    """``[..., 8]`` 32-bit words (any integer dtype holding their bits)
+    -> object array of ints."""
+    w = np.asarray(words).astype(np.uint32).astype(object)
+    out = w[..., 0]
+    for k in range(1, 8):
+        out = out | (w[..., k] << (32 * k))
+    return out
+
+
 def from_ints(values: Sequence[int], device="cpu") -> torch.Tensor:
     """Python ints -> ``int64[16, B]`` (values must be below 2^256)."""
     arr = ints_to_limbs(values).astype(np.int64).T.copy()
@@ -96,6 +118,12 @@ def _limb_consts(values: tuple, n: int, device: torch.device) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.int64, device=device).unsqueeze(-1)
 
 
+@lru_cache(maxsize=None)
+def _limb_index(n: int, device: torch.device) -> torch.Tensor:
+    """``[n, 1]``: 0..n-1, the shift of each limb's bit."""
+    return torch.arange(n, device=device).unsqueeze(-1)
+
+
 def _ripple(v: torch.Tensor):
     """Final carry pass, by lookahead instead of a loop over the limbs.
 
@@ -107,7 +135,7 @@ def _ripple(v: torch.Tensor):
     Returns (limbs in [0, 2^16), carry out of the top limb); ``v`` is
     overwritten."""
     n = v.shape[-2]
-    idx = torch.arange(n, device=v.device).unsqueeze(-1)
+    idx = _limb_index(n, v.device)
     gen = v >> LIMB_BITS
     g = (gen << idx).sum(dim=-2)
     a = ((v == MASK).long() << idx).sum(dim=-2) | g
@@ -116,17 +144,29 @@ def _ripple(v: torch.Tensor):
     return v.bitwise_and_(MASK), (carries >> n) & 1
 
 
-def _normalize(cols: torch.Tensor, passes: int = 2) -> torch.Tensor:
+def _normalize(cols: torch.Tensor, passes: int = 2,
+               exact: bool = True) -> torch.Tensor:
     """Non-negative columns below 2^47 -> limbs in [0, 2^16) of their
     value mod 2^(16 n). Each pass leaves every column below 2^16 plus the
     carry of the one below; two passes bring them under 2^17 - 2
     (2^47 -> 2^16 + 2^31 -> 2^16 + 2^15 + 1), then one lookahead pass
-    finishes."""
+    finishes. With ``exact=False`` the lookahead is skipped: the columns
+    stay below 2^17 and hold the value mod 2^(16 n) only up to a multiple
+    of 2^(16 n) (below 2 * 2^(16 n))."""
     for _ in range(passes):
         hi = cols >> LIMB_BITS
         cols = cols & MASK
         cols[..., 1:, :] += hi[..., :-1, :]
-    return _ripple(cols)[0]
+    return _ripple(cols)[0] if exact else cols
+
+
+@lru_cache(maxsize=None)
+def _reduce_consts(mf: MontField, bound: int,
+                   device: torch.device) -> torch.Tensor:
+    """``[bound - 1, 17, 1]``: the limbs of 2^272 - k p, k < bound."""
+    total = 1 << (LIMB_BITS * (N_LIMBS + 1))
+    return _limb_consts(tuple(total - k * mf.modulus
+                              for k in range(1, bound)), N_LIMBS + 1, device)
 
 
 def _reduce(mf: MontField, x: torch.Tensor, bound: int) -> torch.Tensor:
@@ -137,10 +177,7 @@ def _reduce(mf: MontField, x: torch.Tensor, bound: int) -> torch.Tensor:
     number of such k picks the candidate."""
     if bound <= 1:
         return x[..., :N_LIMBS, :]
-    p = mf.modulus
-    total = 1 << (LIMB_BITS * (N_LIMBS + 1))
-    comps = _limb_consts(tuple(total - k * p for k in range(1, bound)),
-                         N_LIMBS + 1, x.device)
+    comps = _reduce_consts(mf, bound, x.device)
     comps = comps.view(bound - 1, *([1] * (x.dim() - 2)), N_LIMBS + 1, 1)
     y, ge = _ripple(x.unsqueeze(0) + comps)
     k = ge.sum(dim=0)
@@ -163,22 +200,34 @@ def canonical(mf: MontField, x: torch.Tensor) -> torch.Tensor:
                    (1 << R_BITS) // mf.modulus + 1)
 
 
+def _carried(cands: torch.Tensor) -> torch.Tensor:
+    """Candidates (16 limbs each below 3 * 2^16) -> 17 normalized limbs,
+    the 17th the carry out of 2^256 (one pass, then the lookahead)."""
+    top = torch.zeros_like(cands[..., :1, :])
+    return _normalize(torch.cat([cands, top], dim=-2), passes=1)
+
+
 def add(mf: MontField, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(a + b) mod p for canonical a, b."""
-    limbs, top = _ripple(a + b)
-    return _reduce(mf, torch.cat([limbs, top.unsqueeze(-2)], dim=-2), 2)
+    """(a + b) mod p for canonical a, b: a + b and a + b + 2^256 - p are
+    carried at once, and the second's carry out of 2^256 (a + b >= p)
+    picks it."""
+    c = _limb_consts(((1 << R_BITS) - mf.modulus,), N_LIMBS, a.device)[0]
+    s = a + b
+    v = _carried(torch.stack([s, s + c]))
+    return torch.where(v[1, ..., N_LIMBS:, :] == 1, v[1, ..., :N_LIMBS, :],
+                       v[0, ..., :N_LIMBS, :])
 
 
 def sub(mf: MontField, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(a - b) mod p for canonical a, b: the limbs of
-    a + p + (2^256 - 1 - b) + 1 = a - b + p + 2^256, less the 2^256."""
+    """(a - b) mod p for canonical a, b: d = a + (2^256 - 1 - b) + 1 =
+    a - b + 2^256 and d + p are carried at once; d's carry out of 2^256
+    (a >= b) picks d, else d + p."""
     p_limbs = _limb_consts((mf.modulus,), N_LIMBS, a.device)[0]
     one = _limb_consts((1,), N_LIMBS, a.device)[0]
-    v = a + p_limbs + (MASK - b) + one
-    top = torch.zeros_like(v[..., :1, :])
-    x = _normalize(torch.cat([v, top], dim=-2), passes=1)
-    x[..., N_LIMBS, :] = 0
-    return _reduce(mf, x, 2)
+    d = a + (MASK - b) + one
+    v = _carried(torch.stack([d, d + p_limbs]))
+    return torch.where(v[0, ..., N_LIMBS:, :] == 1, v[0, ..., :N_LIMBS, :],
+                       v[1, ..., :N_LIMBS, :])
 
 
 @lru_cache(maxsize=None)
@@ -194,7 +243,7 @@ def _product_cols(a: torch.Tensor, b: torch.Tensor,
     """Schoolbook columns of a*b: ``[..., 33, B]``, column k the sum of
     a_i*b_j over i+j = k (the top two columns are headroom for REDC);
     summed over the leading axis ``dim`` when it is given. Limbs must be
-    below 2^16.
+    below 2^16, or below 2^17 when one operand is a constant.
 
     When one operand is the same for every lane (B = 1: a constant), the
     columns are one float64 matrix product with its Toeplitz matrix,
@@ -227,14 +276,17 @@ def _product_cols(a: torch.Tensor, b: torch.Tensor,
 
 def _redc(mf: MontField, cols: torch.Tensor) -> torch.Tensor:
     """Montgomery reduction of T (33 non-negative columns below 2^46,
-    T / R + p < 2^272) -> (T + m p) / R as 17 normalized limbs, below
-    T / R + p.
+    T / R + 2 p < 2^272) -> (T + m p) / R as 17 normalized limbs, below
+    T / R + 2 p.
 
     m = (T mod R) * (-p^{-1}) mod R over the whole width at once, so
-    T + m p is a multiple of R."""
+    T + m p is a multiple of R. Only m mod R matters, so T's low half and
+    m take two carry passes and no lookahead: m is then held as some
+    m + k R with k <= 1 (limbs below 2^17), which costs one more p in the
+    bound."""
     k = _limb_consts((mf.pinv, mf.modulus), N_LIMBS, cols.device)
-    low = _normalize(cols[..., :N_LIMBS, :])
-    m = _normalize(_product_cols(low, k[0])[..., :N_LIMBS, :])
+    low = _normalize(cols[..., :N_LIMBS, :], exact=False)
+    m = _normalize(_product_cols(low, k[0])[..., :N_LIMBS, :], exact=False)
     full = _normalize(cols + _product_cols(m, k[1]))
     return full[..., N_LIMBS:, :]
 
@@ -242,11 +294,11 @@ def _redc(mf: MontField, cols: torch.Tensor) -> torch.Tensor:
 def _reduce_sum(mf: MontField, cols: torch.Tensor, bound: int,
                 plus: Optional[torch.Tensor], plus_bound: int):
     """(T + plus * R) / R mod p, canonical, for product columns T with
-    T / R + p < bound * p."""
+    T / R + p < bound * p (one more p for the relaxed m of _redc)."""
     if plus is not None:
         cols[..., N_LIMBS:2 * N_LIMBS, :] += plus
         bound += plus_bound
-    return _reduce(mf, _redc(mf, cols), bound)
+    return _reduce(mf, _redc(mf, cols), bound + 1)
 
 
 def mul(mf: MontField, a: torch.Tensor, b: torch.Tensor,
@@ -284,4 +336,4 @@ def from_mont(mf: MontField, x: torch.Tensor) -> torch.Tensor:
     """Montgomery form -> canonical value."""
     cols = torch.cat([x, torch.zeros_like(x), torch.zeros_like(x[..., :1, :])],
                      dim=-2)
-    return _reduce(mf, _redc(mf, cols), 2)
+    return _reduce(mf, _redc(mf, cols), 3)

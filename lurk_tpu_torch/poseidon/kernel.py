@@ -22,6 +22,16 @@ elements in full rounds, element 0 in partial rounds), its matrix, then
 ``post_keys[r]``. The matrices are the dense MDS in full rounds,
 ``sparse[0]`` in round RF/2-1, ``sparse[k+1]`` in partial round k and
 the dense ``pre_sparse`` in the last partial round. The digest is s[1].
+
+The dense schedule (``poseidon_hash_dense``, kernel K2 in
+``csrc/poseidon_dense.cu``, counterpart of ``poseidon/pallas_nib12.py``)
+computes the same digests the spec's way: each round adds the round
+constants to every element, applies the S-box (all elements in full
+rounds, element 0 in partial rounds) and the full MDS. Its buffer
+(:func:`dense_constants`) holds the round constants, the domain tag
+folded into the first, and the MDS, in Montgomery form behind the same
+header. The prover's sharded hydration (``parallel/sharding.py``) runs
+it per shard.
 """
 
 from __future__ import annotations
@@ -29,7 +39,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 from functools import lru_cache
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,9 +48,12 @@ from ..device import resolve_device
 from ..fields import FieldSpec
 from ..ops import field as F
 from .opt_spec import opt_poseidon_spec
+from .spec import poseidon_spec
 
-# CUDA kernel launches made by poseidon_hash (plain runs are not counted).
+# CUDA kernel launches made by poseidon_hash and poseidon_hash_dense
+# (plain runs are not counted).
 launches = 0
+dense_launches = 0
 
 HEADER_WORDS = 24      # p[8], r2[8], pinv, padding to a whole element
 
@@ -82,9 +95,43 @@ class Layout:
         return self.sparse + self.rp * (2 * self.t - 1)
 
 
+@dataclasses.dataclass(frozen=True)
+class DenseLayout:
+    """Element offsets (after the header) of the dense buffer."""
+
+    t: int
+    rf: int
+    rp: int
+
+    @property
+    def n_rounds(self) -> int:
+        return self.rf + self.rp
+
+    @property
+    def mds(self) -> int:
+        return self.n_rounds * self.t
+
+    @property
+    def n_elems(self) -> int:
+        return self.mds + self.t * self.t
+
+
 def _words(values: Sequence[int]) -> np.ndarray:
     raw = b"".join(int(v).to_bytes(32, "little") for v in values)
     return np.frombuffer(raw, dtype="<u4")
+
+
+def _with_header(field: FieldSpec, elems: Sequence[int]) -> np.ndarray:
+    """``uint32[HEADER_WORDS + 8 * len(elems)]``: p, R^2 mod p and
+    -p^{-1} mod 2^32, then the elements in Montgomery form."""
+    mf = F.mont_field(field)
+    p = field.modulus
+    header = np.zeros(HEADER_WORDS, dtype=np.uint32)
+    header[0:8] = _words([p])
+    header[8:16] = _words([mf.r2])
+    header[16] = (-pow(p, -1, 1 << 32)) % (1 << 32)
+    body = _words([mf.to_mont_int(v % p) for v in elems])
+    return np.concatenate([header, body])
 
 
 def _assemble(field: FieldSpec, tag: int, pre_keys, post_keys, mds_col,
@@ -92,7 +139,6 @@ def _assemble(field: FieldSpec, tag: int, pre_keys, post_keys, mds_col,
     """The buffer as ``uint32[HEADER_WORDS + 8 * n_elems]``.
 
     ``sparse_rows[k]`` is ``[m00, *w, *v_hat]`` of ``sparse[k]``."""
-    mf = F.mont_field(field)
     p = field.modulus
     t = len(pre_keys)
     pre = [((tag if i == 0 else 0) + pre_keys[i]) % p for i in range(t)]
@@ -103,12 +149,21 @@ def _assemble(field: FieldSpec, tag: int, pre_keys, post_keys, mds_col,
     lay = Layout(t, len(post_keys) - len(sparse_rows), len(sparse_rows))
     if len(elems) != lay.n_elems or lay.rf < 2:
         raise ValueError("inconsistent Poseidon constant shapes")
-    header = np.zeros(HEADER_WORDS, dtype=np.uint32)
-    header[0:8] = _words([p])
-    header[8:16] = _words([mf.r2])
-    header[16] = (-pow(p, -1, 1 << 32)) % (1 << 32)
-    body = _words([mf.to_mont_int(v % p) for v in elems])
-    return np.concatenate([header, body])
+    return _with_header(field, elems)
+
+
+def _assemble_dense(field: FieldSpec, tag: int, round_constants,
+                    mds) -> np.ndarray:
+    """The dense buffer: ``round_constants`` in generation order with
+    ``tag`` folded into the first, then the MDS row by output (element
+    (j, i) is ``mds[i][j]``, neptune's orientation)."""
+    t = len(mds)
+    rcs = [int(v) for v in round_constants]
+    if t < 2 or len(rcs) % t or any(len(row) != t for row in mds):
+        raise ValueError("inconsistent Poseidon constant shapes")
+    rcs[0] = (rcs[0] + tag) % field.modulus
+    return _with_header(
+        field, rcs + [mds[i][j] for j in range(t) for i in range(t)])
 
 
 @lru_cache(maxsize=None)
@@ -138,6 +193,16 @@ def constants(field: FieldSpec, arity: int, device=None) -> torch.Tensor:
     return buf
 
 
+def _limb_ints(arrays: Dict[str, np.ndarray], name: str) -> np.ndarray:
+    """``arrays[name]`` (canonical 16-bit limbs on the last axis) as an
+    object array of ints."""
+    a = np.asarray(arrays[name])
+    if a.shape[-1] != F.N_LIMBS or a.min() < 0 or a.max() > F.MASK:
+        raise ValueError(f"{name}: expected 16-bit limbs on the last axis")
+    flat = F.limbs_to_ints(a.reshape(-1, F.N_LIMBS))
+    return np.array(flat, dtype=object).reshape(a.shape[:-1])
+
+
 def constants_from_numpy(field: FieldSpec, arrays: Dict[str, np.ndarray],
                          device=None) -> torch.Tensor:
     """The constant buffer from another implementation's constants, given
@@ -153,11 +218,7 @@ def constants_from_numpy(field: FieldSpec, arrays: Dict[str, np.ndarray],
     The round constants enter only through ``pre_keys`` and
     ``post_keys``."""
     def ints(name):
-        a = np.asarray(arrays[name])
-        if a.shape[-1] != F.N_LIMBS or a.min() < 0 or a.max() > F.MASK:
-            raise ValueError(f"{name}: expected 16-bit limbs on the last axis")
-        flat = F.limbs_to_ints(a.reshape(-1, F.N_LIMBS))
-        return np.array(flat, dtype=object).reshape(a.shape[:-1])
+        return _limb_ints(arrays, name)
 
     mds = ints("mds")
     t = mds.shape[0]
@@ -171,9 +232,50 @@ def constants_from_numpy(field: FieldSpec, arrays: Dict[str, np.ndarray],
     return _to_tensor(words, resolve_device(device))
 
 
+@lru_cache(maxsize=None)
+def _host_dense_constants(field: FieldSpec, arity: int) -> np.ndarray:
+    spec = poseidon_spec(field, arity)
+    return _assemble_dense(field, spec.domain_tag, spec.round_constants,
+                           spec.mds)
+
+
+def dense_constants(field: FieldSpec, arity: int,
+                    device=None) -> torch.Tensor:
+    """The cached ``int32`` dense-schedule buffer for (field, arity) on
+    ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    key = ("dense", field, arity, dev)
+    buf = _DEVICE_CONSTANTS.get(key)
+    if buf is None:
+        buf = _DEVICE_CONSTANTS[key] = _to_tensor(
+            _host_dense_constants(field, arity), dev)
+    return buf
+
+
+def dense_constants_from_numpy(field: FieldSpec,
+                               arrays: Dict[str, np.ndarray],
+                               device=None) -> torch.Tensor:
+    """The dense buffer from another implementation's constants, given
+    as canonical 16-bit limbs (``uint32[..., 16]``) from its
+    ``poseidon_spec``: ``domain_tag`` [16], ``round_constants``
+    [(RF+RP) t, 16] in generation order and ``mds`` [t, t, 16] in its own
+    orientation (out[j] = sum_i mds[i][j] s[i]); on ``device`` (default
+    ``cuda``). :func:`poseidon_hash_dense` takes it as ``consts``."""
+    words = _assemble_dense(
+        field, int(_limb_ints(arrays, "domain_tag")),
+        _limb_ints(arrays, "round_constants").tolist(),
+        _limb_ints(arrays, "mds").tolist())
+    return _to_tensor(words, resolve_device(device))
+
+
 def _layout(field: FieldSpec, arity: int) -> Layout:
     spec = opt_poseidon_spec(field, arity).spec
     return Layout(spec.width, spec.full_rounds, spec.partial_rounds)
+
+
+def _dense_layout(field: FieldSpec, arity: int) -> DenseLayout:
+    spec = poseidon_spec(field, arity)
+    return DenseLayout(spec.width, spec.full_rounds, spec.partial_rounds)
 
 
 def _buffer(field: FieldSpec, arity: int, device: torch.device,
@@ -182,7 +284,20 @@ def _buffer(field: FieldSpec, arity: int, device: torch.device,
     the cached buffer when it is None."""
     if consts is None:
         return constants(field, arity, device)
-    n = HEADER_WORDS + 8 * _layout(field, arity).n_elems
+    return _checked(consts, _layout(field, arity).n_elems, device)
+
+
+def _dense_buffer(field: FieldSpec, arity: int, device: torch.device,
+                  consts: Optional[torch.Tensor]) -> torch.Tensor:
+    """As :func:`_buffer`, for the dense schedule."""
+    if consts is None:
+        return dense_constants(field, arity, device)
+    return _checked(consts, _dense_layout(field, arity).n_elems, device)
+
+
+def _checked(consts: torch.Tensor, n_elems: int,
+             device: torch.device) -> torch.Tensor:
+    n = HEADER_WORDS + 8 * n_elems
     if consts.dtype != torch.int32 or tuple(consts.shape) != (n,) or \
             consts.device != device or not consts.is_contiguous():
         raise ValueError(f"expected a contiguous int32[{n}] constant buffer "
@@ -205,6 +320,30 @@ def _check(arity: int, x: torch.Tensor) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _elements(words: torch.Tensor, n_elems: int) -> torch.Tensor:
+    """The buffer's elements (after the header) as 16-bit limbs:
+    ``int64[n_elems, 16, 1]``."""
+    w = words[HEADER_WORDS:].to(torch.int64) & 0xFFFFFFFF
+    k = torch.stack([w & F.MASK, w >> 16], dim=-1).reshape(n_elems, 16)
+    return k.unsqueeze(-1)
+
+
+def _sbox(mf: F.MontField, v: torch.Tensor) -> torch.Tensor:
+    v2 = F.mul(mf, v, v)
+    v4 = F.mul(mf, v2, v2)
+    return F.mul(mf, v4, v)
+
+
+def _inputs(mf: F.MontField, x: torch.Tensor) -> torch.Tensor:
+    """``[arity, 16, B]`` canonical limbs -> the initial state
+    ``[t, 16, B]`` in Montgomery form with slot 0 (the tag's, folded into
+    the constants) at 0."""
+    b = x.shape[-1]
+    inputs = F.to_mont(mf, x.to(torch.int64))
+    return torch.cat([torch.zeros((1, 16, b), dtype=torch.int64,
+                                  device=x.device), inputs], dim=0)
+
+
 @torch.inference_mode()
 def poseidon_hash_plain(field: FieldSpec, arity: int, x: torch.Tensor,
                         consts: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -214,11 +353,7 @@ def poseidon_hash_plain(field: FieldSpec, arity: int, x: torch.Tensor,
     mf = F.mont_field(field)
     lay = _layout(field, arity)
     t, rf_half, rp = lay.t, lay.rf // 2, lay.rp
-    words = _buffer(field, arity, x.device, consts)[HEADER_WORDS:]
-    # uint32 words -> 16-bit limbs: [n_elems, 16, 1]
-    w = words.to(torch.int64) & 0xFFFFFFFF
-    k = torch.stack([w & F.MASK, w >> 16], dim=-1).reshape(lay.n_elems, 16)
-    k = k.unsqueeze(-1)
+    k = _elements(_buffer(field, arity, x.device, consts), lay.n_elems)
 
     def elems(off, n):
         return k[off:off + n]
@@ -230,9 +365,7 @@ def poseidon_hash_plain(field: FieldSpec, arity: int, x: torch.Tensor,
         return elems(lay.post + r * t, t)
 
     def sbox(v):
-        v2 = F.mul(mf, v, v)
-        v4 = F.mul(mf, v2, v2)
-        return F.mul(mf, v4, v)
+        return _sbox(mf, v)
 
     def dense(m, s, r):
         return F.dot(mf, m, s.unsqueeze(0), dim=1, plus=post(r))
@@ -248,11 +381,7 @@ def poseidon_hash_plain(field: FieldSpec, arity: int, x: torch.Tensor,
     def with_sbox0(s):
         return torch.cat([sbox(s[:1]), s[1:]], dim=0)
 
-    b = x.shape[-1]
-    inputs = F.to_mont(mf, x.to(torch.int64))
-    s = torch.cat([torch.zeros((1, 16, b), dtype=torch.int64,
-                               device=x.device), inputs], dim=0)
-    s = F.add(mf, s, elems(lay.pre, t))
+    s = F.add(mf, _inputs(mf, x), elems(lay.pre, t))
     for r in range(rf_half - 1):
         s = dense(mds, sbox(s), r)
     s = sparse(0, sbox(s), rf_half - 1)
@@ -264,49 +393,96 @@ def poseidon_hash_plain(field: FieldSpec, arity: int, x: torch.Tensor,
     return F.from_mont(mf, s[1]).to(torch.int32)
 
 
+@torch.inference_mode()
+def poseidon_hash_dense_plain(field: FieldSpec, arity: int, x: torch.Tensor,
+                              consts: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """K2's dense schedule in plain PyTorch, on ``x``'s device: per
+    round the constants, the S-box (all elements in full rounds, element
+    0 in partial rounds) and the full MDS as one dot product per row."""
+    _check(arity, x)
+    mf = F.mont_field(field)
+    lay = _dense_layout(field, arity)
+    t, rf_half = lay.t, lay.rf // 2
+    k = _elements(_dense_buffer(field, arity, x.device, consts),
+                  lay.n_elems)
+    mds = k[lay.mds:].reshape(t, t, 16, 1)            # [out j, in i]
+    s = _inputs(mf, x)
+    for r in range(lay.n_rounds):
+        s = F.add(mf, s, k[r * t:(r + 1) * t])
+        if r < rf_half or r >= rf_half + lay.rp:
+            s = _sbox(mf, s)
+        else:
+            s = torch.cat([_sbox(mf, s[:1]), s[1:]], dim=0)
+        s = F.dot(mf, mds, s.unsqueeze(0), dim=1)
+    return F.from_mont(mf, s[1]).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
-# CUDA kernel
+# CUDA kernels
 # ---------------------------------------------------------------------------
 
 
-_LIB: Optional[ctypes.CDLL] = None
+# source in csrc/ -> its C entry point
+_ENTRY = {"poseidon": "lurk_poseidon_sparse",
+          "poseidon_dense": "lurk_poseidon_dense"}
+_FNS: Dict[str, Callable] = {}
 
 
-def _library() -> ctypes.CDLL:
-    """``csrc/poseidon.cu``, built at first use."""
-    global _LIB
-    if _LIB is None:
+def _entry(name: str) -> Callable:
+    """The C entry point of ``csrc/<name>.cu``, built at first use."""
+    fn = _FNS.get(name)
+    if fn is None:
         from .. import native
-        lib = native.load("poseidon")
+        fn = getattr(native.load(name), _ENTRY[name])
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lurk_poseidon_sparse.argtypes = [p, p, p, i, i, i,
-                                             ctypes.c_longlong, p]
-        lib.lurk_poseidon_sparse.restype = i
-        _LIB = lib
-    return _LIB
+        fn.argtypes = [p, p, p, i, i, i, ctypes.c_longlong, p]
+        fn.restype = i
+        _FNS[name] = fn
+    return fn
 
 
-def _poseidon_cuda(field: FieldSpec, arity: int, x: torch.Tensor,
-                   consts: Optional[torch.Tensor]) -> torch.Tensor:
-    global launches
+def _launch(name: str, arity: int, rf: int, rp: int, x: torch.Tensor,
+            buf: torch.Tensor) -> torch.Tensor:
+    """One launch of kernel ``name`` on ``x``'s device and current
+    stream; raises on a CUDA error."""
     if not x.is_contiguous():
-        raise ValueError("poseidon_hash: x must be contiguous")
-    lib = _library()
-    lay = _layout(field, arity)
-    buf = _buffer(field, arity, x.device, consts)
+        raise ValueError("poseidon: x must be contiguous")
+    fn = _entry(name)
     b = x.shape[-1]
     out = torch.empty((F.N_LIMBS, b), dtype=torch.int32, device=x.device)
     if b == 0:
         return out
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.lurk_poseidon_sparse(
-            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_void_p(buf.data_ptr()), arity, lay.rf, lay.rp, b,
-            ctypes.c_void_p(stream))
+        err = fn(ctypes.c_void_p(x.data_ptr()),
+                 ctypes.c_void_p(out.data_ptr()),
+                 ctypes.c_void_p(buf.data_ptr()), arity, rf, rp, b,
+                 ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"poseidon kernel launch failed: CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return out
+
+
+def _poseidon_cuda(field: FieldSpec, arity: int, x: torch.Tensor,
+                   consts: Optional[torch.Tensor]) -> torch.Tensor:
+    global launches
+    lay = _layout(field, arity)
+    buf = _buffer(field, arity, x.device, consts)
+    out = _launch("poseidon", arity, lay.rf, lay.rp, x, buf)
+    if x.shape[-1]:
+        launches += 1
+    return out
+
+
+def _poseidon_dense_cuda(field: FieldSpec, arity: int, x: torch.Tensor,
+                         consts: Optional[torch.Tensor]) -> torch.Tensor:
+    global dense_launches
+    lay = _dense_layout(field, arity)
+    buf = _dense_buffer(field, arity, x.device, consts)
+    out = _launch("poseidon_dense", arity, lay.rf, lay.rp, x, buf)
+    if x.shape[-1]:
+        dense_launches += 1
     return out
 
 
@@ -322,6 +498,22 @@ def poseidon_hash(field: FieldSpec, arity: int, x: torch.Tensor,
         return _poseidon_cuda(field, arity, x, consts)
     if x.device.type == "cpu":
         return poseidon_hash_plain(field, arity, x, consts)
+    raise ValueError(f"unsupported device {x.device}")
+
+
+def poseidon_hash_dense(field: FieldSpec, arity: int, x: torch.Tensor,
+                        consts: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """As :func:`poseidon_hash`, through the dense schedule: CUDA tensors
+    go through kernel K2, CPU tensors through
+    :func:`poseidon_hash_dense_plain`; ``consts`` is a dense buffer
+    (:func:`dense_constants_from_numpy`), by default the cached
+    :func:`dense_constants`."""
+    _check(arity, x)
+    if x.device.type == "cuda":
+        return _poseidon_dense_cuda(field, arity, x, consts)
+    if x.device.type == "cpu":
+        return poseidon_hash_dense_plain(field, arity, x, consts)
     raise ValueError(f"unsupported device {x.device}")
 
 
@@ -349,12 +541,23 @@ def hash_batch(field: FieldSpec, arity: int, preimages_ints,
                device=None) -> list:
     """Lists of ``arity`` ints -> digests as Python ints, hashed as one
     batch on ``device`` (default ``cuda``)."""
+    return _hash_ints(poseidon_hash, field, arity, preimages_ints, device)
+
+
+def hash_batch_dense(field: FieldSpec, arity: int, preimages_ints,
+                     device=None) -> list:
+    """As :func:`hash_batch`, through the dense schedule."""
+    return _hash_ints(poseidon_hash_dense, field, arity, preimages_ints,
+                      device)
+
+
+def _hash_ints(fn, field: FieldSpec, arity: int, preimages_ints,
+               device) -> list:
     dev = resolve_device(device)
     if len(preimages_ints) == 0:
         return []
     x = preimages_to_tensor(field, arity, preimages_ints, dev)
-    out = poseidon_hash(field, arity, x)
-    return F.limbs_to_ints(out.cpu().numpy().T)
+    return F.limbs_to_ints(fn(field, arity, x).cpu().numpy().T)
 
 
 def hash_batch_padded(field: FieldSpec, arity: int, preimages_ints,

@@ -6,7 +6,9 @@ Device-batched redesign of the reference's Store:
     dehydrated queue is levelized by DAG depth and each wave of at least
     ``_DEVICE_WAVE_THRESHOLD`` preimages is hashed as one batch on the
     store's device by :func:`lurk_tpu_torch.poseidon.kernel.hash_batch`
-    (replacing rayon par_iter chunks, store_core.rs:256-269). Smaller
+    (replacing rayon par_iter chunks, store_core.rs:256-269), or, while
+    :func:`lurk_tpu_torch.parallel.sharding.prover_devices` names several
+    devices, sharded over them by ``shard_hash_batch_ints``. Smaller
     waves hash on the host, one preimage at a time.
 
 Pointers are flat named tuples (tag, kind, idx) — index-based, no field
@@ -23,6 +25,7 @@ import torch
 
 from ..device import resolve_device
 from ..fields import FieldSpec
+from ..parallel import sharding
 from ..poseidon.host import hash_preimage
 from ..poseidon.kernel import hash_batch
 from ..symbol import Symbol, lurk_sym
@@ -290,6 +293,12 @@ class Store:
     def _hash_wave(self, arity: int, pres: List[List[int]]) -> List[int]:
         if len(pres) < _DEVICE_WAVE_THRESHOLD:
             return [self.poseidon.hash(p) for p in pres]
+        devices = sharding.prover_devices()
+        if devices is not None:
+            # several devices: the wave is sharded over them, dense
+            # Poseidon per shard (store_core.rs:256-269 rayon analog)
+            return sharding.shard_hash_batch_ints(devices, self.field,
+                                                  arity, pres)
         return hash_batch(self.field, arity, pres, device=self.device)
 
     # ------------------------------------------------------------------

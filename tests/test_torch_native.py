@@ -63,3 +63,36 @@ def test_library_tag_follows_the_sources(tmp_path, monkeypatch):
     first = native.library_path("k")
     (csrc / "k.cuh").write_text("// header\n")
     assert native.library_path("k") != first
+
+
+def test_build_many_builds_together_and_reports_every_failure(
+        tmp_path, build_dir, monkeypatch):
+    """One compiler per source, all started before any is waited for; a
+    failure raises after the others have landed."""
+    fake = _fake_nvcc(tmp_path, 'for a in "$@"; do case "$a" in *.cu) '
+                                'src="$a";; esac; done\n'
+                                'while [ "$1" != "-o" ]; do shift; done\n'
+                                'case "$src" in *msm.cu) echo "error: bad '
+                                'msm"; exit 2;; esac\n'
+                                'echo built > "$2"\n')
+    monkeypatch.setattr(native, "nvcc", lambda: fake)
+    with pytest.raises(RuntimeError, match="bad msm"):
+        native.build_many(["poseidon", "msm", "poseidon_dense"])
+    assert native.library_path("poseidon").exists()
+    assert native.library_path("poseidon_dense").exists()
+    assert not native.library_path("msm").exists()
+    assert [p.name for p in build_dir.iterdir() if ".tmp" in p.name] == []
+    assert native.build_many(["poseidon"]) == {"poseidon": 0.0}
+
+
+def test_host_build_needs_gxx(build_dir, monkeypatch):
+    monkeypatch.setattr(native.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        native.build_host()
+
+
+def test_host_build_compiles_every_host_source(build_dir):
+    times = native.build_host()
+    assert sorted(times) == ["pedersen", "srs"]
+    assert all(native.host_library_path(n).exists() for n in times)
+    assert native.build_host() == {}

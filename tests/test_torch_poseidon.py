@@ -144,3 +144,80 @@ def test_cuda_request_without_card_raises():
         K.hash_batch(BN256_SCALAR, 4, [[1, 2, 3, 4]])
     with pytest.raises(RuntimeError):
         K.constants(BN256_SCALAR, 4)
+
+
+# ---------------------------------------------------------------------------
+# the dense schedule (kernel K2's plain version on the CPU)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,arity", CASES)
+def test_dense_plain_matches_jax_and_the_sparse_path(name, arity):
+    field = FIELDS[name]
+    pres = preimages(field.modulus, arity, seed=arity)
+    x = K.preimages_to_tensor(field, arity, pres, "cpu")
+    out = K.poseidon_hash_dense(field, arity, x)
+    assert out.dtype == torch.int32 and tuple(out.shape) == (16, len(pres))
+    got = F.limbs_to_ints(out.numpy().T)
+    jf = JAX_FIELDS[name]
+    assert got == [jax_hash_preimage(jf, pre) for pre in pres]
+    assert got == [jax_hash_preimage_opt(jf, pre) for pre in pres]
+
+
+def jax_dense_arrays(name: str, arity: int) -> dict:
+    """The JAX package's Poseidon spec as numpy limbs."""
+    spec = jax_poseidon_spec(JAX_FIELDS[name], arity)
+    return {"domain_tag": _limbs(spec.domain_tag),
+            "round_constants": _limbs(spec.round_constants),
+            "mds": _limbs(spec.mds)}
+
+
+@pytest.mark.parametrize("name,arity", CASES)
+def test_dense_constants_from_jax_numpy(name, arity):
+    got = K.dense_constants_from_numpy(FIELDS[name],
+                                       jax_dense_arrays(name, arity), "cpu")
+    assert got.dtype == torch.int32
+    assert torch.equal(got, K.dense_constants(FIELDS[name], arity, "cpu"))
+
+
+def test_carried_dense_constants_drive_the_hash():
+    consts = K.dense_constants_from_numpy(
+        BN256_SCALAR, jax_dense_arrays("bn256", 8), "cpu")
+    pres = preimages(BN256_SCALAR.modulus, 8, seed=19)
+    x = K.preimages_to_tensor(BN256_SCALAR, 8, pres, "cpu")
+    got = F.limbs_to_ints(K.poseidon_hash_dense(BN256_SCALAR, 8, x, consts)
+                          .numpy().T)
+    assert got == [jax_hash_preimage(JAX_FIELDS["bn256"], pre)
+                   for pre in pres]
+    with pytest.raises(ValueError):
+        K.poseidon_hash_dense(BN256_SCALAR, 8, x, consts[:-8])
+    with pytest.raises(ValueError):
+        K.poseidon_hash_dense(BN256_SCALAR, 4, x, consts)
+
+
+def test_dense_anchors():
+    assert K.hash_batch_dense(BN256_SCALAR, 3, [[0, 4, 0]], device="cpu") \
+        == [0x1d501baeefe83acf0e7137180b091834f542a5059dbaf99ec82c5e19d3bb9201]
+    h = 0
+    for want in TRIE_ROOTS:
+        (h,) = K.hash_batch_dense(BN256_SCALAR, 8, [[h] * 8], device="cpu")
+        assert h == want
+
+
+@pytest.mark.parametrize("bad", [
+    torch.zeros((4, 16, 3), dtype=torch.int64),      # dtype
+    torch.zeros((3, 16, 3), dtype=torch.int32),      # arity
+    torch.zeros((4, 16), dtype=torch.int32),         # rank
+])
+def test_poseidon_hash_dense_rejects_bad_input(bad):
+    with pytest.raises(ValueError):
+        K.poseidon_hash_dense(BN256_SCALAR, 4, bad)
+
+
+def test_dense_constants_need_a_card_for_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError):
+        K.dense_constants(BN256_SCALAR, 4)
+    with pytest.raises(RuntimeError):
+        K.hash_batch_dense(BN256_SCALAR, 4, [[1, 2, 3, 4]])
