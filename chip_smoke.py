@@ -29,7 +29,20 @@ Phases, each fatal on failure:
      oracle (4 fields x 4 arities at B = 4096), the anchors through it,
      then its main path: fib(100) hydrated with the prover devices set to
      [cuda:0, cuda:0], two launches per batched wave, every digest
-     against host hashing; Poseidon-4 at 2^17 and 2^20 against the bound.
+     against host hashing; Poseidon-4 at 2^17 and 2^20 against the bound;
+  6. the folded Poseidon (csrc/poseidon_folded.cu): against its plain
+     version and the host oracle (4 fields x 4 arities at B = 4096), the
+     anchors through it, then its main path: the port's bench
+     (lurk_tpu_torch/bench.py) Poseidon-4 run through it (11 launches at
+     2^17); Poseidon-4 at 2^17 and 2^20 against the bound; then
+     ``python -m lurk_tpu_torch.bench --schedule folded`` and
+     ``--schedule sparse`` as subprocesses, each printing its one line;
+  7. the step circuit: the blank frame's 11,057 constraints and 9,029
+     aux, frame 0 of fib(100) fully synthesized with every constraint
+     checked, witness-only equal to full synthesis on the first 5 frames
+     at rc = 5; then the main path from phase 2's hydrated fib(100):
+     MultiFrame.from_frames(rc=100) -> 8 witness-only step instances ->
+     each step's W committed with phase 4's 2^21 BN254 key through K6.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -86,7 +99,10 @@ COMMIT_NUM0 = \
     0x1d501baeefe83acf0e7137180b091834f542a5059dbaf99ec82c5e19d3bb9201
 COMMIT_ID_FUN = \
     0x2f31ee658b82c09daebbd2bd976c9d6669ad3bd6065056763797d5aaf4a3001b
-SOURCES = ["poseidon", "poseidon_dense", "msm"]
+SOURCES = ["poseidon", "poseidon_dense", "msm", "poseidon_folded"]
+BENCH_TIMEOUT_S = 300
+STEP_RC = 100                  # fib(100)'s 800 frames in 8 folding steps
+CHECK_RC = 5
 
 
 class SmokeFailure(Exception):
@@ -145,11 +161,13 @@ def time_ms(fn, reps: int) -> float:
 
 
 def imad_per_hash(field, arity: int, kernel_schedule: bool = False,
-                  dense: bool = False) -> int:
+                  dense: bool = False, folded: bool = False) -> int:
     """IMAD per hash: by default the least the sparse schedule needs
     (squarings as squarings, each mix row summed before its one
     reduction); with ``dense`` the same count for the dense schedule
-    (a full t x t MDS every round); with ``kernel_schedule`` what
+    (a full t x t MDS every round); with ``folded`` for the folded
+    schedule (full rounds dense, partial round r one row of t + r terms,
+    the rebuild t rows of t + rp); with ``kernel_schedule`` what
     csrc/poseidon.cu does (every field product a full CIOS)."""
     from lurk_tpu_torch.poseidon.spec import poseidon_spec
     spec = poseidon_spec(field, arity)
@@ -165,6 +183,9 @@ def imad_per_hash(field, arity: int, kernel_schedule: bool = False,
     sbox = 2 * (SQUARE + REDC) + row(1)     # x^2, x^4, x^5
     if dense:
         return convert + sboxes * sbox + (rf + rp) * t * row(t)
+    if folded:
+        return (convert + sboxes * sbox + dense_rows * row(t)
+                + sum(row(t + r) for r in range(rp)) + t * row(t + rp))
     return (convert + sboxes * sbox + dense_rows * row(t)
             + sparse * (row(t) + (t - 1) * row(1)))
 
@@ -415,7 +436,7 @@ def phase4(bound, dev, devices):
             "ms": ms, "plain_ms": plain_ms, "plain_n": n20,
             "bound_ms": bound_ms,
             "bound_by": "operations" if "operations" in bound_by
-            else "bytes", "library_ms": None}
+            else "bytes", "library_ms": None}, key
 
 
 def phase5(bound, gen, dev, host, devices):
@@ -530,6 +551,176 @@ def phase5(bound, gen, dev, host, devices):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if "operations" in bound_by
             else "bytes", "library_ms": None}
+
+
+def run_bench(schedule: str) -> dict:
+    """``python -m lurk_tpu_torch.bench --schedule <schedule>`` from the
+    repository root: its output must be exactly one JSON line."""
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "lurk_tpu_torch.bench", "--schedule",
+         schedule], cwd=root, capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S)
+    check(out.returncode == 0,
+          f"bench --schedule {schedule} exited {out.returncode}: "
+          f"{out.stderr[-2000:]}")
+    lines = out.stdout.splitlines()
+    check(len(lines) == 1, f"bench --schedule {schedule} printed "
+          f"{len(lines)} lines")
+    line = json.loads(lines[0])
+    keys = {"metric", "value", "unit", "vs_baseline", "msm_2e20_ms",
+            "msm_2e20_pipelined_ms"}
+    check(set(line) == keys and line["value"] > 0,
+          f"bench --schedule {schedule}: unexpected line {lines[0]}")
+    print(f"  python -m lurk_tpu_torch.bench --schedule {schedule} "
+          f"({time.perf_counter() - t0:.1f} s): {lines[0]}")
+    return line
+
+
+def phase6(bound, gen, dev):
+    """The folded Poseidon: checks, anchors, the bench path, size."""
+    from lurk_tpu_torch import bench
+    from lurk_tpu_torch.fields import BN256_SCALAR, FIELDS, PALLAS_SCALAR
+    from lurk_tpu_torch.poseidon import kernel as K
+
+    t0 = time.perf_counter()
+    max_err = poseidon_against_plain(
+        FIELDS, gen, dev, K.poseidon_hash_folded,
+        K.poseidon_hash_folded_plain, "folded")
+    check(K.hash_batch_folded(BN256_SCALAR, 3, [[0, 4, 0]], device=dev)
+          == [COMMIT_NUM0], "commit(Num(0)) anchor through the folded kernel")
+    h = 0
+    for want in TRIE_ROOTS:
+        (h,) = K.hash_batch_folded(BN256_SCALAR, 8, [[h] * 8], device=dev)
+        check(h == want, "trie empty-root anchor through the folded kernel")
+    print(f"phase 6.1: folded kernel = plain = host oracle on 16 "
+          f"field/arity pairs at B={PHASE1_BATCH}; anchors hold "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # the main path: the bench's Poseidon-4 run through the folded kernel
+    K.folded_launches = 0
+    t0 = time.perf_counter()
+    line = bench.poseidon_bench("folded", dev)
+    launches = K.folded_launches
+    check(launches == bench.TIMED + 1,
+          f"{launches} folded launches for the bench's {bench.TIMED} + 1")
+    print(f"phase 6.2: bench.poseidon_bench('folded'): {launches} folded "
+          f"launches at B=2^{bench.BATCH.bit_length() - 1}, "
+          f"{line['value']:,.0f} hashes/s (host clock) "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    const_bytes = K.folded_constants(PALLAS_SCALAR, 4, dev).numel() * 4
+    rows = {}
+    for b in (bench.BATCH, 1 << 20):
+        x = random_preimages(PALLAS_SCALAR, 4, b, gen, dev)
+        k_ms = time_ms(lambda: K.poseidon_hash_folded(PALLAS_SCALAR, 4, x),
+                       TIMED_LAUNCHES)
+        b_ms, by = bound.of(PALLAS_SCALAR, 4, b, const_bytes)
+        text = (f"phase 6.3: folded Poseidon-4 pallas B=2^"
+                f"{b.bit_length() - 1}: {k_ms:.3f} ms/launch, "
+                f"{b / k_ms * 1e3:,.0f} hashes/s; bound {b_ms:.3f} ms ({by}: "
+                f"{imad_per_hash(PALLAS_SCALAR, 4)} IMAD per hash, the "
+                f"digest's least work), {b_ms / k_ms:.1%} of it; the folded "
+                f"schedule needs {imad_per_hash(PALLAS_SCALAR, 4, folded=True)}"
+                f" IMAD per hash")
+        p_ms = None
+        if b == bench.BATCH:
+            max_err = max(max_err, compare(
+                PALLAS_SCALAR, 4, x, K.poseidon_hash_folded,
+                K.poseidon_hash_folded_plain)[0])
+            p_ms = time_ms(lambda: K.poseidon_hash_folded_plain(
+                PALLAS_SCALAR, 4, x), 1)
+            text += f"; plain {p_ms:.0f} ms (equal digests)"
+        print(text)
+        rows[b] = (k_ms, p_ms, b_ms, by)
+    run_bench("folded")
+    run_bench("sparse")
+    k_ms, p_ms, b_ms, by = rows[bench.BATCH]
+    return {"name": "poseidon_folded", "route": "cuda",
+            "source": "lurk_tpu_torch/csrc/poseidon_folded.cu",
+            "replaces": "lurk_tpu/poseidon/pallas_nib.py:344",
+            "also_replaces": "lurk_tpu/poseidon/pallas_mxu.py:324",
+            "launches": launches, "mismatches": 0, "max_abs_err": max_err,
+            "ms": launches * k_ms, "plain_ms": launches * p_ms,
+            "bound_ms": launches * b_ms, "bound_by": by, "library_ms": None}
+
+
+def phase7(dev, store, frames, key) -> None:
+    """The step circuit and the main path's witnesses and commitments."""
+    from lurk_tpu_torch.fields import BN256_SCALAR
+    from lurk_tpu_torch.lem.circuit import synthesize_frame
+    from lurk_tpu_torch.lem.eval_step import eval_step
+    from lurk_tpu_torch.lem.interpreter import Frame
+    from lurk_tpu_torch.msm import kernel as M
+    from lurk_tpu_torch.poseidon import kernel as K
+    from lurk_tpu_torch.proof.multiframe import MultiFrame, io_chain_checker
+    from lurk_tpu_torch.r1cs.cs import ConstraintSystem
+
+    step = eval_step()
+    t0 = time.perf_counter()
+    blank = ConstraintSystem(BN256_SCALAR)
+    synthesize_frame(blank, step, store, Frame.blank_frame(step, 0, store))
+    check((blank.num_constraints, blank.num_aux) == (11057, 9029),
+          f"blank step circuit {blank.num_constraints} constraints, "
+          f"{blank.num_aux} aux; expected 11057 and 9029")
+    first = ConstraintSystem(BN256_SCALAR, check=True)
+    synthesize_frame(first, step, store, frames[0])
+    check(first.is_satisfied() and
+          first.shape_digest() == blank.shape_digest(),
+          "frame 0 is unsatisfied or its shape differs from the blank's")
+    (mf5,) = MultiFrame.from_frames(frames[:CHECK_RC], CHECK_RC, step, store)
+    x_full, w_full, _ = mf5.instance(step, store, shape_check=True)
+    x_wo, w_wo, _ = mf5.instance(step, store, witness_only=True)
+    check(x_wo == x_full and w_wo == w_full,
+          "witness-only differs from full synthesis on frames 0-4")
+    print(f"phase 7.1: blank step circuit {blank.num_constraints} "
+          f"constraints, {blank.num_aux} aux; frame 0 satisfied with the "
+          f"blank's shape; witness-only = full synthesis on frames 0-4 at "
+          f"rc={CHECK_RC} ({len(w_full)} aux) "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # the main path: step witnesses of fib(100), each W committed
+    K.launches = M.launches = K.dense_launches = K.folded_launches = 0
+    t0 = time.perf_counter()
+    steps = MultiFrame.from_frames(frames, STEP_RC, step, store)
+    xs, w_s, c_s, sizes = [], [], [], set()
+    for mf in steps:
+        t1 = time.perf_counter()
+        x, w, _ = mf.instance(step, store, witness_only=True)
+        t2 = time.perf_counter()
+        point = key.commit(w)
+        c_s.append(time.perf_counter() - t2)
+        w_s.append(t2 - t1)
+        check(point is not None and key.curve.is_on_curve(point),
+              "a commitment of W is not a curve point")
+        check(all(0 <= v < BN256_SCALAR.modulus for v in w),
+              "W holds a value outside the field")
+        xs.append(x)
+        sizes.add(len(w))
+    t_all = time.perf_counter() - t0
+    poseidon = (K.launches, K.dense_launches, K.folded_launches)
+    check(len(steps) == len(frames) // STEP_RC == 8,
+          f"{len(steps)} folding steps, expected 8")
+    check(M.launches == len(steps), f"{M.launches} MSM launches for "
+          f"{len(steps)} commits of W")
+    check(poseidon == (0, 0, 0), f"Poseidon launches {poseidon} while "
+          "synthesizing witnesses (the store was hydrated in phase 2)")
+    check(len(sizes) == 1, f"W sizes differ across steps: {sorted(sizes)}")
+    check(io_chain_checker(xs[0][:6], xs[-1][6:])(xs),
+          "step inputs and outputs do not chain")
+    print(f"phase 7.2: fib(100) -> MultiFrame.from_frames(rc={STEP_RC}): "
+          f"{len(steps)} steps, W of {sizes.pop()} entries each; witness "
+          f"(witness-only, host C++ trace) {statistics_line(w_s)} s per "
+          f"step; commit of W (2^{key.table().n.bit_length() - 1}-point "
+          f"BN254 key, K6) {statistics_line(c_s)} s per step; "
+          f"{M.launches} MSM launches; {t_all:.1f} s in all")
+
+
+def statistics_line(values) -> str:
+    """"mean (min-max)" of a list of seconds."""
+    return (f"{sum(values) / len(values):.3f} ({min(values):.3f}-"
+            f"{max(values):.3f})")
 
 
 def main() -> int:
@@ -689,12 +880,18 @@ def main() -> int:
 
     # ---- phase 4: K6 ----
     shard_devices = [torch.device("cuda", 0)] * 2
-    msm = phase4(bound, dev, shard_devices)
+    msm, key = phase4(bound, dev, shard_devices)
 
     # ---- phase 5: K2 ----
     dense = phase5(bound, gen, dev, host, shard_devices)
 
-    print(json.dumps({"kernels": [sparse, dense, msm]}))
+    # ---- phase 6: the folded Poseidon and the bench ----
+    folded = phase6(bound, gen, dev)
+
+    # ---- phase 7: step witnesses of fib(100), committed through K6 ----
+    phase7(dev, store, frames, key)
+
+    print(json.dumps({"kernels": [sparse, dense, msm, folded]}))
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

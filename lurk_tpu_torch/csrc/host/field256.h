@@ -1,7 +1,8 @@
 // 4x64-limb Montgomery field arithmetic for the host C++ of
-// lurk_tpu_torch (pedersen.cpp, srs.cpp); a copy of the JAX package's
-// lurk_tpu/native/field256.h. Modulus-generic: parameters arrive at
-// runtime (p, R^2 mod p); -p^{-1} mod 2^64 derived by Newton iteration.
+// lurk_tpu_torch (pedersen.cpp, srs.cpp, poseidon.cpp); a copy of the
+// JAX package's lurk_tpu/native/field256.h. Modulus-generic: parameters
+// arrive at runtime (p, R^2 mod p); -p^{-1} mod 2^64 derived by Newton
+// iteration.
 #pragma once
 
 #include <cstdint>

@@ -1,7 +1,8 @@
 """ctypes wrappers for the port's host C++ (``csrc/host/``), built with
 g++ by :func:`lurk_tpu_torch.native.load_host`.
 
-Copies of the JAX package's ``native/{pedersen,srs}.py``. Points come
+Copies of the JAX package's ``native/{pedersen,srs,poseidon}.py``
+(:mod:`.poseidon` is the witness-only Poseidon trace). Points come
 back as ``uint64[n, 8]`` (x then y, 4 little-endian 64-bit limbs each,
 canonical); :func:`points_from_limbs` turns them into affine tuples with
 numpy, not a loop over the points.

@@ -32,6 +32,18 @@ rounds, element 0 in partial rounds) and the full MDS. Its buffer
 folded into the first, and the MDS, in Montgomery form behind the same
 header. The prover's sharded hydration (``parallel/sharding.py``) runs
 it per shard.
+
+The folded schedule (``poseidon_hash_folded``, kernel ``csrc/
+poseidon_folded.cu``, counterpart of ``poseidon/pallas_nib.py:
+build_pallas_nib_opt_hasher`` and ``pallas_mxu.py:
+build_pallas_mxu_opt_hasher``) runs the full rounds the dense way and the
+partial span from the tables of :mod:`.partial_opt`: each partial
+round's S-box input is ``u_r = alpha_r . s_a + beta_r + sum_{q<r}
+gamma_{r-1-q} delta_q`` over the state ``s_a`` entering the span and the
+earlier S-box outputs ``delta_q``, and the state leaving the span is
+``A s_a + B + W delta``. Its buffer (:func:`folded_constants`) holds the
+full rounds' constants (the domain tag folded into the first), the MDS
+and the six tables, in Montgomery form behind the same header.
 """
 
 from __future__ import annotations
@@ -48,12 +60,14 @@ from ..device import resolve_device
 from ..fields import FieldSpec
 from ..ops import field as F
 from .opt_spec import opt_poseidon_spec
+from .partial_opt import partial_schedule
 from .spec import poseidon_spec
 
-# CUDA kernel launches made by poseidon_hash and poseidon_hash_dense
-# (plain runs are not counted).
+# CUDA kernel launches made by poseidon_hash, poseidon_hash_dense and
+# poseidon_hash_folded (plain runs are not counted).
 launches = 0
 dense_launches = 0
+folded_launches = 0
 
 HEADER_WORDS = 24      # p[8], r2[8], pinv, padding to a whole element
 
@@ -116,6 +130,47 @@ class DenseLayout:
         return self.mds + self.t * self.t
 
 
+@dataclasses.dataclass(frozen=True)
+class FoldedLayout:
+    """Element offsets (after the header) of the folded buffer."""
+
+    t: int
+    rf: int
+    rp: int
+
+    @property
+    def mds(self) -> int:
+        return self.rf * self.t
+
+    @property
+    def alpha(self) -> int:
+        return self.mds + self.t * self.t
+
+    @property
+    def beta(self) -> int:
+        return self.alpha + self.rp * self.t
+
+    @property
+    def gamma(self) -> int:
+        return self.beta + self.rp
+
+    @property
+    def a_mat(self) -> int:
+        return self.gamma + self.rp
+
+    @property
+    def b_vec(self) -> int:
+        return self.a_mat + self.t * self.t
+
+    @property
+    def w_mat(self) -> int:
+        return self.b_vec + self.t
+
+    @property
+    def n_elems(self) -> int:
+        return self.w_mat + self.t * self.rp
+
+
 def _words(values: Sequence[int]) -> np.ndarray:
     raw = b"".join(int(v).to_bytes(32, "little") for v in values)
     return np.frombuffer(raw, dtype="<u4")
@@ -164,6 +219,36 @@ def _assemble_dense(field: FieldSpec, tag: int, round_constants,
     rcs[0] = (rcs[0] + tag) % field.modulus
     return _with_header(
         field, rcs + [mds[i][j] for j in range(t) for i in range(t)])
+
+
+def _assemble_folded(field: FieldSpec, tag: int, round_constants, mds,
+                     alpha, beta, gamma, a_mat, b_vec, w_mat) -> np.ndarray:
+    """The folded buffer: the full rounds' constants (``round_constants``
+    in generation order, the partial rounds' dropped: they live in
+    ``beta`` and ``b_vec``) with ``tag`` folded into the first, the MDS
+    row by output (element (j, i) is ``mds[i][j]``), then ``alpha``
+    [rp][t], ``beta`` [rp], ``gamma`` [rp], ``a_mat`` [t][t], ``b_vec``
+    [t] and ``w_mat`` [t][rp] of :func:`.partial_opt.partial_schedule`."""
+    t, rp = len(mds), len(beta)
+    rcs = [int(v) for v in round_constants]
+    if t < 2 or len(rcs) % t or any(len(row) != t for row in mds):
+        raise ValueError("inconsistent Poseidon constant shapes")
+    rf = len(rcs) // t - rp
+    lay = FoldedLayout(t, rf, rp)
+    if rf < 2 or rf % 2 or len(gamma) != rp or len(b_vec) != t or \
+            any(len(row) != t for row in alpha) or len(alpha) != rp or \
+            any(len(row) != t for row in a_mat) or len(a_mat) != t or \
+            any(len(row) != rp for row in w_mat) or len(w_mat) != t:
+        raise ValueError("inconsistent folded Poseidon table shapes")
+    rcs[0] = (rcs[0] + tag) % field.modulus
+    half = rf // 2
+    full = rcs[:half * t] + rcs[(half + rp) * t:]
+    elems = (full + [mds[i][j] for j in range(t) for i in range(t)]
+             + [v for row in alpha for v in row] + list(beta) + list(gamma)
+             + [v for row in a_mat for v in row] + list(b_vec)
+             + [v for row in w_mat for v in row])
+    assert len(elems) == lay.n_elems
+    return _with_header(field, elems)
 
 
 @lru_cache(maxsize=None)
@@ -268,6 +353,49 @@ def dense_constants_from_numpy(field: FieldSpec,
     return _to_tensor(words, resolve_device(device))
 
 
+@lru_cache(maxsize=None)
+def _host_folded_constants(field: FieldSpec, arity: int) -> np.ndarray:
+    spec = poseidon_spec(field, arity)
+    sc = partial_schedule(field, arity)
+    return _assemble_folded(field, spec.domain_tag, spec.round_constants,
+                            spec.mds, sc.alpha, sc.beta, sc.gamma, sc.a_mat,
+                            sc.b_vec, sc.w_mat)
+
+
+def folded_constants(field: FieldSpec, arity: int,
+                     device=None) -> torch.Tensor:
+    """The cached ``int32`` folded-schedule buffer for (field, arity) on
+    ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    key = ("folded", field, arity, dev)
+    buf = _DEVICE_CONSTANTS.get(key)
+    if buf is None:
+        buf = _DEVICE_CONSTANTS[key] = _to_tensor(
+            _host_folded_constants(field, arity), dev)
+    return buf
+
+
+def folded_constants_from_numpy(field: FieldSpec,
+                                arrays: Dict[str, np.ndarray],
+                                device=None) -> torch.Tensor:
+    """The folded buffer from another implementation's constants, given
+    as canonical 16-bit limbs (``uint32[..., 16]``): ``domain_tag`` [16],
+    ``round_constants`` [(RF+RP) t, 16] and ``mds`` [t, t, 16] (its own
+    orientation) from its ``poseidon_spec``, and its ``partial_schedule``
+    tables ``alpha`` [RP, t, 16], ``beta`` and ``gamma`` [RP, 16],
+    ``a_mat`` [t, t, 16], ``b_vec`` [t, 16] and ``w_mat`` [t, RP, 16];
+    on ``device`` (default ``cuda``). :func:`poseidon_hash_folded` takes
+    it as ``consts``."""
+    def ints(name):
+        return _limb_ints(arrays, name).tolist()
+
+    words = _assemble_folded(
+        field, int(_limb_ints(arrays, "domain_tag")), ints("round_constants"),
+        ints("mds"), ints("alpha"), ints("beta"), ints("gamma"),
+        ints("a_mat"), ints("b_vec"), ints("w_mat"))
+    return _to_tensor(words, resolve_device(device))
+
+
 def _layout(field: FieldSpec, arity: int) -> Layout:
     spec = opt_poseidon_spec(field, arity).spec
     return Layout(spec.width, spec.full_rounds, spec.partial_rounds)
@@ -276,6 +404,11 @@ def _layout(field: FieldSpec, arity: int) -> Layout:
 def _dense_layout(field: FieldSpec, arity: int) -> DenseLayout:
     spec = poseidon_spec(field, arity)
     return DenseLayout(spec.width, spec.full_rounds, spec.partial_rounds)
+
+
+def _folded_layout(field: FieldSpec, arity: int) -> FoldedLayout:
+    spec = poseidon_spec(field, arity)
+    return FoldedLayout(spec.width, spec.full_rounds, spec.partial_rounds)
 
 
 def _buffer(field: FieldSpec, arity: int, device: torch.device,
@@ -293,6 +426,14 @@ def _dense_buffer(field: FieldSpec, arity: int, device: torch.device,
     if consts is None:
         return dense_constants(field, arity, device)
     return _checked(consts, _dense_layout(field, arity).n_elems, device)
+
+
+def _folded_buffer(field: FieldSpec, arity: int, device: torch.device,
+                   consts: Optional[torch.Tensor]) -> torch.Tensor:
+    """As :func:`_buffer`, for the folded schedule."""
+    if consts is None:
+        return folded_constants(field, arity, device)
+    return _checked(consts, _folded_layout(field, arity).n_elems, device)
 
 
 def _checked(consts: torch.Tensor, n_elems: int,
@@ -418,6 +559,52 @@ def poseidon_hash_dense_plain(field: FieldSpec, arity: int, x: torch.Tensor,
     return F.from_mont(mf, s[1]).to(torch.int32)
 
 
+@torch.inference_mode()
+def poseidon_hash_folded_plain(field: FieldSpec, arity: int,
+                               x: torch.Tensor,
+                               consts: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """The folded schedule in plain PyTorch, on ``x``'s device: full
+    rounds as in :func:`poseidon_hash_dense_plain`; partial round r's
+    S-box input is one dot product of ``[alpha_r, gamma_{r-1}, ...,
+    gamma_0]`` with ``[s_a, delta_0, ..., delta_{r-1}]`` plus ``beta_r``;
+    the state leaving the span is one dot product per row of ``[A | W]``
+    with ``[s_a, delta]`` plus ``B``."""
+    _check(arity, x)
+    mf = F.mont_field(field)
+    lay = _folded_layout(field, arity)
+    t, half, rp = lay.t, lay.rf // 2, lay.rp
+    k = _elements(_folded_buffer(field, arity, x.device, consts),
+                  lay.n_elems)
+    mds = k[lay.mds:lay.alpha].reshape(t, t, 16, 1)   # [out j, in i]
+    alpha = k[lay.alpha:lay.beta].reshape(rp, t, 16, 1)
+    beta, gamma = k[lay.beta:lay.gamma], k[lay.gamma:lay.a_mat]
+    a_mat = k[lay.a_mat:lay.b_vec].reshape(t, t, 16, 1)
+    b_vec = k[lay.b_vec:lay.w_mat]
+    w_mat = k[lay.w_mat:].reshape(t, rp, 16, 1)
+
+    def full_round(s, r):
+        s = _sbox(mf, F.add(mf, s, k[r * t:(r + 1) * t]))
+        return F.dot(mf, mds, s.unsqueeze(0), dim=1)
+
+    s = _inputs(mf, x)
+    for r in range(half):
+        s = full_round(s, r)
+    deltas = []
+    for r in range(rp):
+        coeff = torch.cat([alpha[r], gamma[:r].flip(0)], dim=0)
+        u = F.dot(mf, coeff, torch.cat([s, *deltas], dim=0), dim=0,
+                  plus=beta[r])
+        deltas.append(_sbox(mf, u.unsqueeze(0)))
+    vals = torch.cat([s, *deltas], dim=0)
+    s = torch.stack([
+        F.dot(mf, torch.cat([a_mat[i], w_mat[i]], dim=0), vals, dim=0,
+              plus=b_vec[i]) for i in range(t)])
+    for r in range(half, lay.rf):
+        s = full_round(s, r)
+    return F.from_mont(mf, s[1]).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
@@ -425,7 +612,8 @@ def poseidon_hash_dense_plain(field: FieldSpec, arity: int, x: torch.Tensor,
 
 # source in csrc/ -> its C entry point
 _ENTRY = {"poseidon": "lurk_poseidon_sparse",
-          "poseidon_dense": "lurk_poseidon_dense"}
+          "poseidon_dense": "lurk_poseidon_dense",
+          "poseidon_folded": "lurk_poseidon_folded"}
 _FNS: Dict[str, Callable] = {}
 
 
@@ -486,6 +674,17 @@ def _poseidon_dense_cuda(field: FieldSpec, arity: int, x: torch.Tensor,
     return out
 
 
+def _poseidon_folded_cuda(field: FieldSpec, arity: int, x: torch.Tensor,
+                          consts: Optional[torch.Tensor]) -> torch.Tensor:
+    global folded_launches
+    lay = _folded_layout(field, arity)
+    buf = _folded_buffer(field, arity, x.device, consts)
+    out = _launch("poseidon_folded", arity, lay.rf, lay.rp, x, buf)
+    if x.shape[-1]:
+        folded_launches += 1
+    return out
+
+
 def poseidon_hash(field: FieldSpec, arity: int, x: torch.Tensor,
                   consts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Digests ``int32[16, B]`` of ``x: int32[arity, 16, B]`` (canonical
@@ -514,6 +713,22 @@ def poseidon_hash_dense(field: FieldSpec, arity: int, x: torch.Tensor,
         return _poseidon_dense_cuda(field, arity, x, consts)
     if x.device.type == "cpu":
         return poseidon_hash_dense_plain(field, arity, x, consts)
+    raise ValueError(f"unsupported device {x.device}")
+
+
+def poseidon_hash_folded(field: FieldSpec, arity: int, x: torch.Tensor,
+                         consts: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """As :func:`poseidon_hash`, through the folded schedule: CUDA
+    tensors go through ``csrc/poseidon_folded.cu``, CPU tensors through
+    :func:`poseidon_hash_folded_plain`; ``consts`` is a folded buffer
+    (:func:`folded_constants_from_numpy`), by default the cached
+    :func:`folded_constants`."""
+    _check(arity, x)
+    if x.device.type == "cuda":
+        return _poseidon_folded_cuda(field, arity, x, consts)
+    if x.device.type == "cpu":
+        return poseidon_hash_folded_plain(field, arity, x, consts)
     raise ValueError(f"unsupported device {x.device}")
 
 
@@ -548,6 +763,13 @@ def hash_batch_dense(field: FieldSpec, arity: int, preimages_ints,
                      device=None) -> list:
     """As :func:`hash_batch`, through the dense schedule."""
     return _hash_ints(poseidon_hash_dense, field, arity, preimages_ints,
+                      device)
+
+
+def hash_batch_folded(field: FieldSpec, arity: int, preimages_ints,
+                      device=None) -> list:
+    """As :func:`hash_batch`, through the folded schedule."""
+    return _hash_ints(poseidon_hash_folded, field, arity, preimages_ints,
                       device)
 
 

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions on the card:
-K1 (sparse Poseidon), K2 (dense Poseidon), K6 (MSM) and the sharded
-prover layer over [cuda:0, cuda:0].
+K1 (sparse Poseidon), K2 (dense Poseidon), K6 (MSM), the sharded prover
+layer over [cuda:0, cuda:0], and the folded Poseidon (K3b/K4b's
+counterpart) with the bench's Poseidon figures through each schedule.
 
 Needs a CUDA card and nvcc; every case skips without a card. Imports
 nothing of the JAX package, so it runs where jax is not installed:
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from lurk_tpu_torch import bench
 from lurk_tpu_torch.curves.weierstrass import CURVE_FOR_FIELD
 from lurk_tpu_torch.fields import BN256_SCALAR, FIELDS
 from lurk_tpu_torch.msm import kernel as M
@@ -134,3 +136,47 @@ def test_msm_wrapper_rejects_bad_words(card):
                                      device=card))
     with pytest.raises(ValueError):
         M.msm_words(tab, torch.zeros((tab.n, 8), dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the folded Poseidon and the bench
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,arity", CASES)
+def test_folded_kernel_matches_plain(card, name, arity):
+    field = FIELDS[name]
+    rng = np.random.default_rng(200 + arity)
+    limbs = rng.integers(0, 1 << 16, size=(arity, 16, 700), dtype=np.int32)
+    limbs[:, 15, :] %= field.modulus >> 240
+    limbs[:, :, 0] = 0
+    x = torch.from_numpy(limbs).to(card)
+    launches = K.folded_launches
+    got = K.poseidon_hash_folded(field, arity, x)
+    assert K.folded_launches == launches + 1
+    assert torch.equal(got, K.poseidon_hash_folded_plain(field, arity, x))
+    assert torch.equal(got, K.poseidon_hash(field, arity, x))
+
+
+@pytest.mark.cuda
+def test_folded_kernel_buffer_and_input_checks(card):
+    x = torch.zeros((8, 16, 130), dtype=torch.int32, device=card)
+    consts = K.folded_constants(BN256_SCALAR, 8, card).clone()
+    assert torch.equal(K.poseidon_hash_folded(BN256_SCALAR, 8, x, consts),
+                       K.poseidon_hash_folded(BN256_SCALAR, 8, x))
+    with pytest.raises(ValueError):
+        K.poseidon_hash_folded(BN256_SCALAR, 8, x, consts.cpu())
+    with pytest.raises(ValueError):
+        K.poseidon_hash_folded(BN256_SCALAR, 8, x[..., ::2])
+    pres = [[i, BN256_SCALAR.modulus - 1 - i, 3, 4] for i in range(70)]
+    assert K.hash_batch_folded(BN256_SCALAR, 4, pres, device=card) == \
+        [hash_preimage(BN256_SCALAR, p) for p in pres]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", sorted(bench.SCHEDULES))
+def test_bench_poseidon_figures(card, schedule):
+    line = bench.poseidon_bench(schedule, card)
+    assert set(line) == {"metric", "value", "unit", "vs_baseline"}
+    assert line["metric"] == "poseidon4_hashes_per_s" and line["value"] > 0

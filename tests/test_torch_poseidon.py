@@ -4,9 +4,13 @@ the JAX package's plain Poseidon paths, bit for bit (tolerance 0).
 On the CPU ``poseidon_hash`` runs the plain version of the CUDA kernel
 (the sparse schedule on ops.field). The JAX side is the dense host
 oracle ``hash_preimage`` and the sparse host schedule
-``hash_preimage_opt``; the Pallas builders are pinned against these two
-by the JAX package's own tests, so interpret-mode Pallas is not run here.
+``hash_preimage_opt``; the Pallas builders (the folded K3b/K4b among
+them) are pinned against these two by the JAX package's own tests, so
+interpret-mode Pallas is not run here. The folded schedule's tables are
+held against the JAX package's ``partial_schedule``.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -18,10 +22,18 @@ from lurk_tpu.poseidon.opt_spec import (
     hash_preimage_opt as jax_hash_preimage_opt,
     opt_poseidon_spec as jax_opt_poseidon_spec,
 )
+from lurk_tpu.poseidon.partial_opt import (
+    partial_schedule as jax_partial_schedule,
+    run_partial_span_host as jax_run_partial_span_host,
+)
 from lurk_tpu.poseidon.spec import poseidon_spec as jax_poseidon_spec
+from lurk_tpu_torch import bench
 from lurk_tpu_torch.fields import BN256_SCALAR, FIELDS
 from lurk_tpu_torch.ops import field as F
 from lurk_tpu_torch.poseidon import kernel as K
+from lurk_tpu_torch.poseidon.partial_opt import (
+    partial_schedule, run_partial_span_host,
+)
 
 CASES = [(name, arity) for name in sorted(FIELDS) for arity in (3, 4, 6, 8)]
 TRIE_ROOTS = [
@@ -221,3 +233,99 @@ def test_dense_constants_need_a_card_for_cuda():
         K.dense_constants(BN256_SCALAR, 4)
     with pytest.raises(RuntimeError):
         K.hash_batch_dense(BN256_SCALAR, 4, [[1, 2, 3, 4]])
+
+
+# ---------------------------------------------------------------------------
+# the folded schedule (csrc/poseidon_folded.cu's plain version on the CPU)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,arity", [(n, a) for n in ("bn256", "pallas")
+                                        for a in (3, 4, 6, 8)])
+def test_partial_schedule_matches_jax(name, arity):
+    """The folded tables, and the host span oracle over them on a random
+    state, equal the JAX package's."""
+    got = partial_schedule(FIELDS[name], arity)
+    want = jax_partial_schedule(JAX_FIELDS[name], arity)
+    assert dataclasses.astuple(got) == dataclasses.astuple(want)
+    (state,) = preimages(FIELDS[name].modulus, arity + 1, seed=90 + arity)[:1]
+    assert run_partial_span_host(FIELDS[name], arity, state) == \
+        jax_run_partial_span_host(JAX_FIELDS[name], arity, state)
+
+
+@pytest.mark.parametrize("name,arity", CASES)
+def test_folded_plain_matches_jax(name, arity):
+    """Random preimages, all zeros and all p-1 (test_pallas_nib.py's
+    edge case) through the folded schedule give the JAX host digests."""
+    field = FIELDS[name]
+    pres = preimages(field.modulus, arity, seed=50 + arity)
+    x = K.preimages_to_tensor(field, arity, pres, "cpu")
+    out = K.poseidon_hash_folded(field, arity, x)
+    assert out.dtype == torch.int32 and tuple(out.shape) == (16, len(pres))
+    assert F.limbs_to_ints(out.numpy().T) == \
+        [jax_hash_preimage(JAX_FIELDS[name], pre) for pre in pres]
+
+
+def jax_folded_arrays(name: str, arity: int) -> dict:
+    """The JAX package's spec and partial_schedule tables as numpy limbs."""
+    jf = JAX_FIELDS[name]
+    spec = jax_poseidon_spec(jf, arity)
+    sc = jax_partial_schedule(jf, arity)
+    return {"domain_tag": _limbs(spec.domain_tag),
+            "round_constants": _limbs(spec.round_constants),
+            "mds": _limbs(spec.mds), "alpha": _limbs(sc.alpha),
+            "beta": _limbs(sc.beta), "gamma": _limbs(sc.gamma),
+            "a_mat": _limbs(sc.a_mat), "b_vec": _limbs(sc.b_vec),
+            "w_mat": _limbs(sc.w_mat)}
+
+
+@pytest.mark.parametrize("name,arity", [("bn256", 4), ("pallas", 8)])
+def test_folded_constants_from_jax_numpy(name, arity):
+    """The JAX package's tables, handed over as numpy limbs, give the
+    port's own folded buffer bit for bit and drive the plain version to
+    the JAX digests; a buffer of the wrong size is refused."""
+    field = FIELDS[name]
+    consts = K.folded_constants_from_numpy(
+        field, jax_folded_arrays(name, arity), "cpu")
+    assert torch.equal(consts, K.folded_constants(field, arity, "cpu"))
+    pres = preimages(field.modulus, arity, seed=70 + arity)
+    x = K.preimages_to_tensor(field, arity, pres, "cpu")
+    got = F.limbs_to_ints(K.poseidon_hash_folded(field, arity, x, consts)
+                          .numpy().T)
+    assert got == [jax_hash_preimage(JAX_FIELDS[name], pre) for pre in pres]
+    with pytest.raises(ValueError):
+        K.poseidon_hash_folded(field, arity, x, consts[:-8])
+    with pytest.raises(ValueError):
+        K.poseidon_hash_folded(field, 6 if arity != 6 else 4, x, consts)
+
+
+def test_folded_anchors():
+    assert K.hash_batch_folded(BN256_SCALAR, 3, [[0, 4, 0]], device="cpu") \
+        == [0x1d501baeefe83acf0e7137180b091834f542a5059dbaf99ec82c5e19d3bb9201]
+    h = 0
+    for want in TRIE_ROOTS:
+        (h,) = K.hash_batch_folded(BN256_SCALAR, 8, [[h] * 8], device="cpu")
+        assert h == want
+
+
+@pytest.mark.parametrize("bad", [
+    torch.zeros((4, 16, 3), dtype=torch.int64),      # dtype
+    torch.zeros((3, 16, 3), dtype=torch.int32),      # arity
+    torch.zeros((4, 16), dtype=torch.int32),         # rank
+])
+def test_poseidon_hash_folded_rejects_bad_input(bad):
+    with pytest.raises(ValueError):
+        K.poseidon_hash_folded(BN256_SCALAR, 4, bad)
+
+
+def test_folded_path_and_bench_need_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError):
+        K.folded_constants(BN256_SCALAR, 4)
+    with pytest.raises(RuntimeError):
+        K.hash_batch_folded(BN256_SCALAR, 4, [[1, 2, 3, 4]])
+    with pytest.raises(RuntimeError):
+        bench.main([])
+    with pytest.raises(SystemExit):
+        bench.main(["--schedule", "ladder"])
