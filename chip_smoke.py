@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``lurk_tpu_torch``) on one GPU.
 
-Usage: python3 chip_smoke.py        (needs one CUDA card, nvcc and g++)
+Usage: python3 chip_smoke.py   (needs one CUDA card, nvcc and g++)
 
 Phases, each fatal on failure:
-  0. card: nvidia-smi name and power limit, versions; the three kernel
-     sources built at once (one nvcc each), the host C++ with g++;
+  0. card: nvidia-smi name and power limit, versions; the kernel sources
+     built at once (one nvcc each), the host C++ with g++; the measured
+     32-bit IMAD rate (csrc/imad_rate.cu) and the SM clock under it,
+     beside the bounds' assumed rate;
   1. K1 against plain: the sparse CUDA Poseidon against its plain
      PyTorch version on the card, 4 fields x arities 3/4/6/8 at B = 4096
      (random canonical preimages plus all-0 and all-(p-1) lanes), 8 lanes
@@ -24,7 +26,10 @@ Phases, each fatal on failure:
      of random 2^20 and 2^21 vectors and a Grumpkin 2^16 key's commit
      (the 2^20 and the Grumpkin commits against the plain version on
      the card); the two-shard table over [cuda:0, cuda:0] against the
-     single table; times and bounds;
+     single table; times and bounds; then K6 at 2^20 on three skewed
+     vectors (all scalars equal, W-like repeated values, 64 non-zero),
+     each kind held against the plain version at 2^16, the all-equal one
+     at 2^20 by MSM(s, ..., s) = s MSM(1, ..., 1);
   5. K2, the dense Poseidon: against its plain version and the host
      oracle (4 fields x 4 arities at B = 4096), the anchors through it,
      then its main path: fib(100) hydrated with the prover devices set to
@@ -34,15 +39,19 @@ Phases, each fatal on failure:
      version and the host oracle (4 fields x 4 arities at B = 4096), the
      anchors through it, then its main path: the port's bench
      (lurk_tpu_torch/bench.py) Poseidon-4 run through it (11 launches at
-     2^17); Poseidon-4 at 2^17 and 2^20 against the bound; then
-     ``python -m lurk_tpu_torch.bench --schedule folded`` and
-     ``--schedule sparse`` as subprocesses, each printing its one line;
+     2^17); Poseidon-4 at 2^17 and 2^20 against the bound, each held
+     against the plain version (over chunks of 2^17 lanes) and on 8
+     lanes against the host oracle; then ``python -m
+     lurk_tpu_torch.bench --schedule folded`` and ``--schedule sparse``
+     as subprocesses, each printing its one line;
   7. the step circuit: the blank frame's 11,057 constraints and 9,029
      aux, frame 0 of fib(100) fully synthesized with every constraint
      checked, witness-only equal to full synthesis on the first 5 frames
      at rc = 5; then the main path from phase 2's hydrated fib(100):
      MultiFrame.from_frames(rc=100) -> 8 witness-only step instances ->
-     each step's W committed with phase 4's 2^21 BN254 key through K6.
+     each step's W committed with phase 4's 2^21 BN254 key through K6;
+     each W's kernel timed alone (CUDA events) with its bound and longest
+     bucket run, step 0's against the plain version on the card.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -73,7 +82,10 @@ COMMITS = (1 << 20, 1 << 21)  # W's size (about 100 x 9,029) and the key's
 CK_GRUMPKIN = 1 << 16
 REPEATED_BASES = 1024          # bench.py:180-184 repeats 1024 points
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-IMAD_PER_CLK_PER_SM = 64       # 32-bit integer multiply-add, cc 9.0
+# 32-bit integer multiply-adds per clock per SM, compute capability
+# 9.0's nominal rate, at the card's maximum SM clock (phase 0 prints the
+# IMAD probe's measured rate and the SM clock under it beside this)
+IMAD_PER_CLK_PER_SM = 64
 # 32-bit multiply-adds (IMAD) per operation on 8 x 32-bit limbs, a wide
 # 32x32->64 product counting 2 (low and high word)
 PRODUCT = 2 * 64               # a*b: 64 wide products
@@ -99,7 +111,17 @@ COMMIT_NUM0 = \
     0x1d501baeefe83acf0e7137180b091834f542a5059dbaf99ec82c5e19d3bb9201
 COMMIT_ID_FUN = \
     0x2f31ee658b82c09daebbd2bd976c9d6669ad3bd6065056763797d5aaf4a3001b
-SOURCES = ["poseidon", "poseidon_dense", "msm", "poseidon_folded"]
+SOURCES = ["poseidon", "poseidon_dense", "msm", "poseidon_folded",
+           "imad_rate"]
+IMAD_BLOCKS_PER_SM = 8         # 2048 threads an SM for the IMAD probe
+IMAD_THREADS = 256
+IMAD_ITERS = 1 << 12           # of 64 IMAD: about 4.5 ms a launch
+IMAD_LAUNCHES = 400            # long enough to read the SM clock under load
+FOLDED_CHUNK = 1 << 17         # lanes per plain folded call at 2^20
+SKEW_N = 1 << 20               # K6's three skewed vectors
+SKEW_CHECK_N = 1 << 16         # ... and their size against the plain MSM
+W_LIKE_VALUES = 50_000         # fib(100)'s W: 49,161 distinct values
+W_TIMED = 3                    # timed launches per W commit
 BENCH_TIMEOUT_S = 300
 STEP_RC = 100                  # fib(100)'s 800 frames in 8 folding steps
 CHECK_RC = 5
@@ -215,16 +237,18 @@ class Bound:
         signed windows: one mixed addition for each non-zero digit that
         is not the first of its bucket (this run's data), and 2 additions
         per bucket for the running sums; bytes: the table, the scalars
-        and the result once. Returns (ms, bound_by, mixed additions)."""
+        and the result once. Returns (ms, bound_by, mixed additions,
+        the longest bucket run)."""
         from lurk_tpu_torch.msm.kernel import (
             C_BITS, N_BUCKETS, N_WIN, digits_from_words)
-        madds = 0
+        madds = longest = 0
         for win in digits_from_words(words, C_BITS)[0]:
             sizes = np.bincount(win, minlength=N_BUCKETS + 1)[1:]
             madds += int(sizes.sum()) - int(np.count_nonzero(sizes))
+            longest = max(longest, int(sizes.max()))
         ops = madds * MADD + 2 * N_WIN * N_BUCKETS * ADD
         nbytes = table_rows * 64 + words.shape[0] * 32 + 96
-        return (*self._max(ops, nbytes), madds)
+        return (*self._max(ops, nbytes), madds, longest)
 
 
 def compare(field, arity, x, hash_fn, plain_fn):
@@ -289,6 +313,64 @@ def point_err(a, b) -> int:
     return max(abs(a[0] - b[0]), abs(a[1] - b[1]))
 
 
+def skew_vectors(rng, order: int, n: int):
+    """K6's skewed inputs of n scalars: [(label, words, the common
+    scalar or None)]: every scalar equal (the worst skew: 16 runs of n);
+    W-like (a fixed set of W_LIKE_VALUES values drawn from the seed,
+    each repeated, with W's shares of 0 and 1: 23% and 2%); 64 non-zero
+    scalars, the rest 0 (nearly pure fixed cost)."""
+    equal = np.repeat(random_words(rng, order, 8)[3:4], n, axis=0)
+    pool = random_words(rng, order, W_LIKE_VALUES)
+    wlike = pool[rng.integers(0, W_LIKE_VALUES, n)]
+    u = rng.random(n)
+    wlike[u < 0.23] = 0
+    wlike[(u >= 0.23) & (u < 0.25)] = pool[1]
+    sparse = np.zeros((n, 8), dtype=np.uint32)
+    sparse[:64] = random_words(rng, order, 64)
+    return [("all equal", equal, scalar_ints(equal[:1])[0]),
+            ("W-like", wlike, None), ("64 non-zero", sparse, None)]
+
+
+def skewed(bound, rng, table, random_ms: float, check_plain: bool):
+    """Phase 4.5: K6 at SKEW_N on the three skewed vectors (the main
+    path's launch: the scalars' rows only); each kind held against the
+    plain version at SKEW_CHECK_N (with ``check_plain``), the all-equal
+    vector at SKEW_N by MSM(s, ..., s) = s MSM(1, ..., 1) on the host.
+    Returns {label: ms}."""
+    from lurk_tpu_torch.msm import kernel as M
+    curve = table.curve
+    t0 = time.perf_counter()
+    if check_plain:
+        for label, words, _ in skew_vectors(rng, curve.order, SKEW_CHECK_N):
+            tab = table.prefix(SKEW_CHECK_N)
+            w = words_on(tab, words)
+            got = M.to_affine(curve, M.msm_words(tab, w))
+            check(got == M.to_affine(curve, M.msm_plain(curve, tab.rows, w)),
+                  f"K6 on the {label} vector at 2^16 differs from plain")
+    tab = table.prefix(SKEW_N)
+    out = {}
+    for label, words, scalar in skew_vectors(rng, curve.order, SKEW_N):
+        w = words_on(tab, words)
+        if scalar is not None:
+            ones = words_on(tab, np.repeat(random_words(rng, curve.order, 3)
+                                           [1:2], SKEW_N, axis=0))
+            check(M.to_affine(curve, M.msm_words(tab, w)) ==
+                  curve.mul(scalar, M.to_affine(curve, M.msm_words(tab, ones))),
+                  "MSM(s, ..., s) differs from s MSM(1, ..., 1) at 2^20")
+        k_ms = out[label] = time_ms(lambda: M.msm_words(tab, w),
+                                    TIMED_LAUNCHES)
+        b_ms, by, madds, longest = bound.msm(words, tab.n)
+        print(f"  K6 2^20 {label}: {k_ms:.3f} ms/launch ({k_ms / random_ms:.2f}"
+              f"x the random vector's {random_ms:.3f} ms); bound {b_ms:.3f} "
+              f"ms ({by}: {madds} mixed additions), {b_ms / k_ms:.1%} of it; "
+              f"longest bucket run {longest}")
+    print(f"phase 4.5: K6 on three skewed vectors at 2^20"
+          + (" (each kind = plain at 2^16; all equal = s MSM(1..1))"
+             if check_plain else "")
+          + f" ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
 def phase4(bound, dev, devices):
     """K6: checks, the commitment main path, the sharded table, times."""
     from lurk_tpu_torch.curves.weierstrass import (
@@ -329,7 +411,7 @@ def phase4(bound, dev, devices):
     w12 = words_on(base, checked["bn254-g1"][1])
     k12 = time_ms(lambda: M.msm_words(base, w12), TIMED_LAUNCHES)
     p12 = time_ms(lambda: M.msm_plain(BN254_G1, base.rows, w12), 1)
-    b12, by12, _ = bound.msm(checked["bn254-g1"][1], base.n)
+    b12, by12, _, _ = bound.msm(checked["bn254-g1"][1], base.n)
     print(f"phase 4.1: 4 curves at n=2^12 and 1024 bases x 4: kernel = "
           f"plain = host Pippenger; BN254 n=2^12: kernel {k12:.3f} ms, "
           f"plain {p12:.1f} ms, bound {b12:.4f} ms ({by12}) "
@@ -400,21 +482,30 @@ def phase4(bound, dev, devices):
           f"the card ({n20 // PLAIN_CHUNK} chunks of {PLAIN_CHUNK} lanes, "
           f"{plain_ms:.1f} ms, host clock)")
 
+    # the main path's launches: each commit sends its scalars' rows only
     ms = bound_ms = 0.0
     bound_by = set()
-    shapes = [(f"BN254 G1 n=2^{n.bit_length() - 1}", table, vecs[n],
-               host_s[n]) for n in COMMITS]
+    shapes = [(f"BN254 G1 n=2^{n.bit_length() - 1}", table.prefix(n),
+               vecs[n], host_s[n]) for n in COMMITS]
     shapes.append(("Grumpkin n=2^16", gkey.table(), gvec, host_s["g"]))
+    k_times = {}
     for label, tab, words, hs in shapes:
         w = words_on(tab, words)
-        k_ms = time_ms(lambda: M.msm_words(tab, w), TIMED_LAUNCHES)
-        b_ms, by, madds = bound.msm(words, tab.n)
+        k_ms = k_times[label] = time_ms(lambda: M.msm_words(tab, w),
+                                        TIMED_LAUNCHES)
+        b_ms, by, madds, longest = bound.msm(words, tab.n)
         print(f"  commit {label}: kernel {k_ms:.3f} ms/launch (CUDA events, "
               f"{TIMED_LAUNCHES} launches), whole commit {hs:.3f} s (host "
               f"clock: packing, kernel, affine); bound {b_ms:.3f} ms ({by}: "
-              f"{madds} mixed additions), {b_ms / k_ms:.1%} of it")
+              f"{madds} mixed additions), {b_ms / k_ms:.1%} of it; longest "
+              f"bucket run {longest}")
         ms, bound_ms = ms + k_ms, bound_ms + b_ms
         bound_by.add(by)
+    w = words_on(table, vecs[n20])
+    pad_ms = time_ms(lambda: M.msm_words(table, w), TIMED_LAUNCHES)
+    print(f"  the 2^20 vector padded to the key's 2^21 rows (the launch "
+          f"before commits sent only their rows): kernel {pad_ms:.3f} "
+          f"ms/launch")
 
     # 4.4 the sharded table over one card twice
     t0 = time.perf_counter()
@@ -429,11 +520,12 @@ def phase4(bound, dev, devices):
     print(f"phase 4.4: two shards on [cuda:0, cuda:0] equal the single "
           f"table at 2^20 and (through CommitmentKey) at 2^21 "
           f"({time.perf_counter() - t0:.1f} s)")
+    skewed(bound, rng, table, k_times[shapes[0][0]], check_plain=True)
     return {"name": "msm", "route": "cuda",
             "source": "lurk_tpu_torch/csrc/msm.cu",
             "replaces": "lurk_tpu/msm/device_v2.py:249",
             "launches": launches, "mismatches": 0, "max_abs_err": max_err,
-            "ms": ms, "plain_ms": plain_ms, "plain_n": n20,
+            "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "operations" if "operations" in bound_by
             else "bytes", "library_ms": None}, key
@@ -624,14 +716,14 @@ def phase6(bound, gen, dev):
                 f"digest's least work), {b_ms / k_ms:.1%} of it; the folded "
                 f"schedule needs {imad_per_hash(PALLAS_SCALAR, 4, folded=True)}"
                 f" IMAD per hash")
+        max_err = max(max_err, folded_held(x))
+        text += (f"; equal to the plain version ({b // FOLDED_CHUNK} "
+                 f"chunk(s) of {FOLDED_CHUNK} lanes) and the host oracle")
         p_ms = None
         if b == bench.BATCH:
-            max_err = max(max_err, compare(
-                PALLAS_SCALAR, 4, x, K.poseidon_hash_folded,
-                K.poseidon_hash_folded_plain)[0])
             p_ms = time_ms(lambda: K.poseidon_hash_folded_plain(
                 PALLAS_SCALAR, 4, x), 1)
-            text += f"; plain {p_ms:.0f} ms (equal digests)"
+            text += f"; plain {p_ms:.0f} ms"
         print(text)
         rows[b] = (k_ms, p_ms, b_ms, by)
     run_bench("folded")
@@ -646,8 +738,38 @@ def phase6(bound, gen, dev):
             "bound_ms": launches * b_ms, "bound_by": by, "library_ms": None}
 
 
-def phase7(dev, store, frames, key) -> None:
-    """The step circuit and the main path's witnesses and commitments."""
+def folded_held(x: torch.Tensor) -> int:
+    """The folded kernel's Poseidon-4 over Pallas on x (int32[4, 16, B])
+    against its plain version over lane chunks of FOLDED_CHUNK and 8
+    lanes (the first, the middle, the last) against the host oracle;
+    returns the max |diff|."""
+    from lurk_tpu_torch.fields import PALLAS_SCALAR
+    from lurk_tpu_torch.poseidon import kernel as K
+    from lurk_tpu_torch.poseidon.host import hash_preimage
+    b = x.shape[-1]
+    got = K.poseidon_hash_folded(PALLAS_SCALAR, 4, x)
+    err = 0
+    for lo in range(0, b, FOLDED_CHUNK):
+        part = got[..., lo:lo + FOLDED_CHUNK]
+        want = K.poseidon_hash_folded_plain(
+            PALLAS_SCALAR, 4, x[..., lo:lo + FOLDED_CHUNK].contiguous())
+        mism = int((part != want).any(dim=0).sum())
+        check(mism == 0, f"folded Poseidon-4 at B={b}: {mism} lanes of "
+              f"[{lo}, {lo + FOLDED_CHUNK}) differ from plain")
+        err = max(err, int((part.to(torch.int64)
+                            - want.to(torch.int64)).abs().max()))
+    lanes = [0, 1, 2, 3, b // 2, b - 3, b - 2, b - 1]
+    pres = [lane_ints(x[a], lanes) for a in range(4)]
+    want = [hash_preimage(PALLAS_SCALAR, [pres[a][j] for a in range(4)])
+            for j in range(len(lanes))]
+    check(lane_ints(got, lanes) == want,
+          f"folded Poseidon-4 at B={b} differs from the host oracle")
+    return err
+
+
+def phase7(bound, store, frames, key) -> dict:
+    """The step circuit and the main path's witnesses and commitments;
+    returns the W commits' K6 figures for the kernels line."""
     from lurk_tpu_torch.fields import BN256_SCALAR
     from lurk_tpu_torch.lem.circuit import synthesize_frame
     from lurk_tpu_torch.lem.eval_step import eval_step
@@ -684,7 +806,7 @@ def phase7(dev, store, frames, key) -> None:
     K.launches = M.launches = K.dense_launches = K.folded_launches = 0
     t0 = time.perf_counter()
     steps = MultiFrame.from_frames(frames, STEP_RC, step, store)
-    xs, w_s, c_s, sizes = [], [], [], set()
+    xs, w_s, c_s, sizes, points, packed = [], [], [], set(), [], []
     for mf in steps:
         t1 = time.perf_counter()
         x, w, _ = mf.instance(step, store, witness_only=True)
@@ -692,6 +814,10 @@ def phase7(dev, store, frames, key) -> None:
         point = key.commit(w)
         c_s.append(time.perf_counter() - t2)
         w_s.append(t2 - t1)
+        t_pack = time.perf_counter()
+        packed.append(M.pack_scalar_words(w, key.curve.order))
+        t0 += time.perf_counter() - t_pack       # not the path's time
+        points.append(point)
         check(point is not None and key.curve.is_on_curve(point),
               "a commitment of W is not a curve point")
         check(all(0 <= v < BN256_SCALAR.modulus for v in w),
@@ -716,6 +842,39 @@ def phase7(dev, store, frames, key) -> None:
           f"BN254 key, K6) {statistics_line(c_s)} s per step; "
           f"{M.launches} MSM launches; {t_all:.1f} s in all")
 
+    # each W commit's kernel alone (the launch the commit made: W's rows)
+    t0 = time.perf_counter()
+    table = key.table()
+    ms = bound_ms = plain_ms = 0.0
+    for k, words in enumerate(packed):
+        tab = table.prefix(words.shape[0])
+        w = words_on(tab, words)
+        k_ms = time_ms(lambda: M.msm_words(tab, w), W_TIMED)
+        b_ms, by, madds, longest = bound.msm(words, tab.n)
+        print(f"  W commit {k}: kernel {k_ms:.3f} ms/launch (CUDA events, "
+              f"{W_TIMED} launches; the whole commit {c_s[k]:.3f} s, host "
+              f"clock); bound {b_ms:.3f} ms ({by}: {madds} mixed additions),"
+              f" {b_ms / k_ms:.1%} of it; longest bucket run {longest}")
+        ms, bound_ms = ms + k_ms, bound_ms + b_ms
+        if k == 0:              # against the plain version, over chunks
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            plain = None
+            for lo in range(0, tab.n, PLAIN_CHUNK):
+                part = M.msm_plain(key.curve, tab.rows[lo:lo + PLAIN_CHUNK],
+                                   w[lo:lo + PLAIN_CHUNK])
+                plain = key.curve.add(plain, M.to_affine(key.curve, part))
+            plain_ms = 1e3 * (time.perf_counter() - t1)
+            check(plain == points[0] == M.to_affine(
+                key.curve, M.msm_words(tab, w)),
+                "step 0's W commit differs from the plain version")
+    print(f"phase 7.3: the 8 W commits' kernels {ms:.3f} ms in all, bound "
+          f"{bound_ms:.3f} ms ({bound_ms / ms:.1%}); step 0's equals the "
+          f"plain version on the card ({plain_ms:.1f} ms, host clock) "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return {"launches": len(steps), "ms": ms, "bound_ms": bound_ms,
+            "plain_ms": plain_ms}
+
 
 def statistics_line(values) -> str:
     """"mean (min-max)" of a list of seconds."""
@@ -723,30 +882,47 @@ def statistics_line(values) -> str:
             f"{max(values):.3f})")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this run "
-              "needs a CUDA card", file=sys.stderr)
-        return 2
+def imad_rate(sms: int):
+    """(32-bit IMAD per second, SM clock in MHz under that load) from
+    csrc/imad_rate.cu: CUDA events over IMAD_LAUNCHES back-to-back
+    launches of independent mad.lo.cc / madc.hi.cc chains, nvidia-smi's
+    SM clock read while they run."""
+    import ctypes
     from lurk_tpu_torch import native
-    from lurk_tpu_torch.examples import FIB_PROGRAM, fib_limit
-    from lurk_tpu_torch.fields import BN256_SCALAR, FIELDS
-    from lurk_tpu_torch.lem.evaluation import evaluate
-    from lurk_tpu_torch.parser import read_with_default_state
-    from lurk_tpu_torch.poseidon import kernel as K
-    from lurk_tpu_torch.store import core
-    from lurk_tpu_torch.store.core import Store
-    from lurk_tpu_torch.symbol import user_sym
+    lib = native.load("imad_rate")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lurk_imad_probe.argtypes = [p, i, i, i, p]
+    lib.lurk_imad_probe.restype = i
+    lib.lurk_imad_count.argtypes = [i, i, i]
+    lib.lurk_imad_count.restype = ctypes.c_longlong
+    blocks = sms * IMAD_BLOCKS_PER_SM
+    out = torch.empty(blocks * IMAD_THREADS, dtype=torch.int32, device="cuda")
 
-    # parameter caches live in the checkout's build directory, cold
-    cache = Path(__file__).resolve().parent / "lurk_tpu_torch" / "_build" \
-        / "cache"
-    shutil.rmtree(cache, ignore_errors=True)
-    os.environ["LURK_TPU_CACHE"] = str(cache)
-    dev = torch.device("cuda")
-    t_all = time.perf_counter()
+    def launch():
+        err = lib.lurk_imad_probe(
+            p(out.data_ptr()), blocks, IMAD_THREADS, IMAD_ITERS,
+            p(torch.cuda.current_stream().cuda_stream))
+        check(err == 0, f"IMAD probe launch failed: CUDA error {err}")
 
-    # ---- phase 0: card and build ----
+    launch()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(IMAD_LAUNCHES):
+        launch()
+    end.record()
+    clock = float(nvidia_smi("clocks.sm", ",nounits"))
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    imad = lib.lurk_imad_count(blocks, IMAD_THREADS, IMAD_ITERS)
+    return IMAD_LAUNCHES * imad / (ms * 1e-3), clock
+
+
+def build_and_probe():
+    """Phase 0: the card, the builds (with ptxas's registers and stack)
+    and the IMAD probe. Returns (nvidia-smi line, Bound)."""
+    from lurk_tpu_torch import native
     smi = nvidia_smi("name,power.limit")
     clock = float(nvidia_smi("clocks.max.sm", ",nounits"))
     props = torch.cuda.get_device_properties(0)
@@ -767,6 +943,43 @@ def main() -> int:
     host_times = native.build_host()
     print(f"host C++ (g++, at once): {time.perf_counter() - t0:.1f} s "
           + ", ".join(f"{n}.cpp {s:.1f} s" for n, s in host_times.items()))
+    sms = props.multi_processor_count
+    rate, load_clock = imad_rate(sms)
+    at_load = sms * IMAD_PER_CLK_PER_SM * load_clock * 1e6
+    print(f"IMAD probe: {rate:.4e} 32-bit IMAD/s measured (mad.lo.cc / "
+          f"madc.hi.cc chains, {IMAD_BLOCKS_PER_SM * IMAD_THREADS} threads "
+          f"an SM), SM clock under it {load_clock:.0f} MHz; the bounds "
+          f"assume {bound.imad_per_s:.4e} ({IMAD_PER_CLK_PER_SM}/clk/SM at "
+          f"the max clock {clock:.0f} MHz), {rate / bound.imad_per_s:.1%} "
+          f"of it; {IMAD_PER_CLK_PER_SM}/clk/SM at {load_clock:.0f} MHz is "
+          f"{at_load:.4e}, {rate / at_load:.1%} of that")
+    return smi, bound
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run "
+              "needs a CUDA card", file=sys.stderr)
+        return 2
+    from lurk_tpu_torch.examples import FIB_PROGRAM, fib_limit
+    from lurk_tpu_torch.fields import BN256_SCALAR, FIELDS
+    from lurk_tpu_torch.lem.evaluation import evaluate
+    from lurk_tpu_torch.parser import read_with_default_state
+    from lurk_tpu_torch.poseidon import kernel as K
+    from lurk_tpu_torch.store import core
+    from lurk_tpu_torch.store.core import Store
+    from lurk_tpu_torch.symbol import user_sym
+
+    # parameter caches live in the checkout's build directory, cold
+    cache = Path(__file__).resolve().parent / "lurk_tpu_torch" / "_build" \
+        / "cache"
+    shutil.rmtree(cache, ignore_errors=True)
+    os.environ["LURK_TPU_CACHE"] = str(cache)
+    dev = torch.device("cuda")
+    t_all = time.perf_counter()
+
+    # ---- phase 0: card, build, IMAD probe ----
+    smi, bound = build_and_probe()
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
 
@@ -889,7 +1102,12 @@ def main() -> int:
     folded = phase6(bound, gen, dev)
 
     # ---- phase 7: step witnesses of fib(100), committed through K6 ----
-    phase7(dev, store, frames, key)
+    w_commits = phase7(bound, store, frames, key)
+    msm["launches"] += w_commits["launches"]
+    msm["ms"] += w_commits["ms"]
+    msm["bound_ms"] += w_commits["bound_ms"]
+    msm["plain_ms"] += w_commits["plain_ms"]
+    msm["plain_of"] = "the 2^20 commit and step 0's W"
 
     print(json.dumps({"kernels": [sparse, dense, msm, folded]}))
     print(f"total {time.perf_counter() - t_all:.1f} s")

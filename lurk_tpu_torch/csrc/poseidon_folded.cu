@@ -23,24 +23,34 @@
 // imad_per_hash). This schedule, counted the same way, needs about
 // 378,000: the quadratic window sum_{q<r} makes the span 56 rows of
 // 5 + r terms (1,820 products), and the rebuild 5 rows of 61 more. So it
-// can reach at most about 53% of the digest's bound; this kernel, with a
-// full CIOS reduction per product, does about 2,600 field products per
-// arity-4 hash and will stay well below that.
+// can reach at most about 53% of the digest's bound.
 //
-// Design: one thread per hash, the t-element state in registers (8 x
-// 32-bit limbs each, field.cuh's CIOS), as K1 and K2. All constants (full
-// rounds' keys, the MDS and the six folded tables: 1,383 elements, 44 KB
-// at t = 9) are staged once per block in dynamic shared memory, where a
-// warp's threads read the same word (a broadcast). The MDS and the rebuild
-// run one output row per iteration, staged in shared memory. Every round
-// loop stays rolled, so nvcc builds the file in seconds.
-//
-// What holds it back: the quadratic window, and the delta history. Each
-// thread keeps its rp (56 or 57) S-box outputs, 1.8 KB, which cannot stay
-// in registers: they live in per-thread local memory (L1, spilling to L2)
-// and every partial round reads all earlier ones back. A faster kernel
-// would share the window across threads as a matrix product (wgmma/mma
-// over digit planes) and batch the rebuild the same way.
+// Design: a group of kGroup = 8 lanes of one warp works on one hash.
+// - The history stays in registers. Lane l keeps delta_q for q = l mod 8
+//   (at most 8 of the 56-57: slot q / 8), and the state elements
+//   e = l mod 8 (two at t = 9). Every loop that indexes these arrays is
+//   unrolled over the slot and rolled over the lane phase, so each index
+//   is a compile-time constant and nothing goes to local memory.
+// - One reduction per row. Each lane sums its share of a row (its
+//   elements' and its deltas' products) unreduced, 512-bit products in
+//   a 17-word accumulator (field.cuh's wide_mac), the group adds its
+//   lanes' accumulators with __shfl_xor_sync, and every lane reduces the
+//   row once (redc_wide, R' = 2^288; the tables' product factors are
+//   staged times 2^32 for it) and applies the S-box, so delta_r is known
+//   to all eight and kept by lane r mod 8. The rebuild A s_a + B + W
+//   delta is split the same way, one row at a time. A full round's MDS
+//   row j is summed by lane j mod 8 over all t S-box outputs, broadcast
+//   with __shfl_sync.
+// - The S-box of the span (three products on the row's critical path)
+//   runs on all eight lanes at once: that is the price of the split,
+//   and with the shuffles what bounds the kernel now (it does about 1.9x
+//   the digest's least work, plus the eight lanes' redundant S-boxes).
+// - ptxas (chip_smoke.py's build log): 152 registers at t = 4/5/7 and
+//   160 at t = 9, 0 bytes of stack at every width.
+// - All tables (full rounds' keys, the MDS and the six folded tables:
+//   1,383 elements, 44 KB at t = 9) are staged once per block in dynamic
+//   shared memory, where a group's lanes read distinct elements and the
+//   groups of a warp read the same ones.
 //
 // Layout: x is int32[arity, 16, B] (16-bit limbs, limb-major, batch
 // last), out is int32[16, B]. k is the buffer of kernel.py:
@@ -49,6 +59,11 @@
 // domain tag folded into rc[0][0]), mds[t][t] (row j holding M[i][j] over
 // i), alpha[RP][t], beta[RP], gamma[RP], a_mat[t][t], b_vec[t] and
 // w_mat[t][RP].
+//
+// The body is written over Lanes: on the card each thread is one lane
+// (Lanes::L = 1, shuffles); on the host (g++, tests) one call runs the
+// group's eight lanes as arrays (Lanes::L = 8), so the same code is
+// checked off the card.
 #include <stdint.h>
 
 #include "field.cuh"
@@ -56,33 +71,102 @@
 namespace {
 
 constexpr int kHeaderWords = 24;
-constexpr int kThreads = 128;
+constexpr int kGroup = 8;               // lanes per hash
+constexpr int kThreads = 256;           // 32 hashes a block
 constexpr int kMaxRp = 64;
+constexpr int kDeltaSlots = kMaxRp / kGroup; // deltas per lane
 
 FE_FN void ld(uint32_t r[fe::N], const uint32_t* src) {
 #pragma unroll
   for (int i = 0; i < fe::N; ++i) r[i] = src[i];
 }
 
-template <int T>
+// Offsets (in elements, after the header) of the folded buffer's tables.
+struct Tables {
+  int t, rf, rp;
+  FE_FN int mds() const { return rf * t; }
+  FE_FN int alpha() const { return mds() + t * t; }
+  FE_FN int beta() const { return alpha() + rp * t; }
+  FE_FN int gamma() const { return beta() + rp; }
+  FE_FN int a_mat() const { return gamma() + rp; }
+  FE_FN int b_vec() const { return a_mat() + t * t; }
+  FE_FN int w_mat() const { return b_vec() + t; }
+  FE_FN int n_elems() const { return w_mat() + t * rp; }
+  // element e multiplies a state value (and is staged times 2^32)
+  FE_FN bool product(int e) const {
+    return (e >= mds() && e < beta()) || (e >= gamma() && e < b_vec()) ||
+           e >= w_mat();
+  }
+};
+
+// Stage element e of the buffer k into elems: factors of products times
+// 2^32 (for redc_wide), the added constants as they are.
+FE_FN void stage_elem(int e, const uint32_t* k, const Tables& tb,
+                      uint32_t* elems) {
+  uint32_t v[fe::N], p[fe::N], r2[fe::N];
+  ld(v, k + kHeaderWords + fe::N * e);
+  if (tb.product(e)) {
+    ld(p, k);
+    ld(r2, k + 8);
+    fe::scale_32(v, v, r2, p, k[16]);
+  }
+#pragma unroll
+  for (int i = 0; i < fe::N; ++i) elems[fe::N * e + i] = v[i];
+}
+
+#ifdef __CUDACC__
+// One lane per thread: lane = threadIdx.x mod 8.
+struct DeviceLanes {
+  static constexpr int L = 1;
+  __device__ __forceinline__ static int lane(int) {
+    return threadIdx.x & (kGroup - 1);
+  }
+  // every lane's acc becomes the group's sum
+  __device__ __forceinline__ static void sum(uint32_t acc[L][fe::W]) {
+#pragma unroll
+    for (int m = 1; m < kGroup; m <<= 1) {
+      uint32_t o[fe::W];
+#pragma unroll
+      for (int w = 0; w < fe::W; ++w)
+        o[w] = __shfl_xor_sync(0xFFFFFFFFu, acc[0][w], m, kGroup);
+      fe::wide_sum(acc[0], o);
+    }
+  }
+  // out = v of lane src, in every lane
+  __device__ __forceinline__ static void bcast(uint32_t out[L][fe::N],
+                                               uint32_t v[L][fe::N], int src) {
+#pragma unroll
+    for (int w = 0; w < fe::N; ++w)
+      out[0][w] = __shfl_sync(0xFFFFFFFFu, v[0][w], src, kGroup);
+  }
+};
+#endif
+
+// The whole group in one thread (host check).
+struct HostLanes {
+  static constexpr int L = kGroup;
+  static int lane(int ln) { return ln; }
+  static void sum(uint32_t acc[L][fe::W]) {
+    for (int ln = 1; ln < L; ++ln) fe::wide_sum(acc[0], acc[ln]);
+    for (int ln = 1; ln < L; ++ln)
+      for (int w = 0; w < fe::W; ++w) acc[ln][w] = acc[0][w];
+  }
+  static void bcast(uint32_t out[L][fe::N], uint32_t v[L][fe::N], int src) {
+    for (int ln = 0; ln < L; ++ln)
+      for (int w = 0; w < fe::N; ++w) out[ln][w] = v[src][w];
+  }
+};
+
+template <int T, class Lanes>
 struct FoldedPoseidon {
-  const uint32_t* elems;   // the tables, Montgomery; shared memory
-  // scratch word (e, w) of this thread's row output at
-  // scratch[(e * N + w) * stride]: shared memory on the card
-  uint32_t* scratch;
-  int stride;
+  static constexpr int L = Lanes::L;
+  static constexpr int kOwn = (T + kGroup - 1) / kGroup;   // elements a lane
+  const uint32_t* elems;   // the staged tables (shared memory on the card)
   uint32_t p[fe::N];
   uint32_t pinv;
-  int rf, rp;
+  Tables tb;
 
   FE_FN const uint32_t* elem(int e) const { return elems + fe::N * e; }
-  FE_FN int mds_off() const { return rf * T; }
-  FE_FN int alpha_off() const { return mds_off() + T * T; }
-  FE_FN int beta_off() const { return alpha_off() + rp * T; }
-  FE_FN int gamma_off() const { return beta_off() + rp; }
-  FE_FN int a_off() const { return gamma_off() + rp; }
-  FE_FN int b_off() const { return a_off() + T * T; }
-  FE_FN int w_off() const { return b_off() + T; }
 
   FE_FN void sbox(uint32_t x[fe::N]) const {
     uint32_t x2[fe::N], x4[fe::N];
@@ -91,135 +175,210 @@ struct FoldedPoseidon {
     fe::mul(x, x4, x, p, pinv);
   }
 
-  // acc += c * v, c the constant element e
-  FE_FN void mac(uint32_t acc[fe::N], int e, const uint32_t v[fe::N]) const {
-    uint32_t c[fe::N], prod[fe::N];
+  // acc += (staged factor e) * v
+  FE_FN void mac(uint32_t acc[fe::W], int e, const uint32_t v[fe::N]) const {
+    uint32_t c[fe::N];
     ld(c, elem(e));
-    fe::mul(prod, v, c, p, pinv);
-    fe::add(acc, acc, prod, p);
+    fe::wide_mac(acc, c, v);
   }
 
-  // scratch row j -> s[j] for every j
-  FE_FN void from_scratch(uint32_t s[T][fe::N]) const {
+  // full round r: constants and S-box on the lane's elements, then lane
+  // j mod 8 sums MDS row j over every element
+  FE_FN void full_round(uint32_t own[L][kOwn][fe::N], int r) const {
+    uint32_t acc[L][kOwn][fe::W];
 #pragma unroll
-    for (int j = 0; j < T; ++j)
+    for (int ln = 0; ln < L; ++ln)
 #pragma unroll
-      for (int w = 0; w < fe::N; ++w)
-        s[j][w] = scratch[(j * fe::N + w) * stride];
-  }
-
-  FE_FN void to_scratch(int j, const uint32_t v[fe::N]) const {
-#pragma unroll
-    for (int w = 0; w < fe::N; ++w) scratch[(j * fe::N + w) * stride] = v[w];
-  }
-
-  // full round r of the buffer (0 <= r < rf): constants, S-box on every
-  // element, then s = M s one output row per iteration
-  FE_FN void full_round(uint32_t s[T][fe::N], int r) const {
-#pragma unroll
-    for (int i = 0; i < T; ++i) {
-      uint32_t c[fe::N];
-      ld(c, elem(r * T + i));
-      fe::add(s[i], s[i], c, p);
-      sbox(s[i]);
-    }
-#pragma unroll 1
-    for (int j = 0; j < T; ++j) {
-      uint32_t acc[fe::N] = {0, 0, 0, 0, 0, 0, 0, 0};
-#pragma unroll
-      for (int i = 0; i < T; ++i) mac(acc, mds_off() + j * T + i, s[i]);
-      to_scratch(j, acc);
-    }
-    from_scratch(s);
-  }
-
-  // the partial span on s = s_a; delta holds kMaxRp elements
-  FE_FN void span(uint32_t s[T][fe::N], uint32_t (*delta)[fe::N]) const {
-#pragma unroll 1
-    for (int r = 0; r < rp; ++r) {
-      uint32_t u[fe::N];
-      ld(u, elem(beta_off() + r));
-#pragma unroll
-      for (int i = 0; i < T; ++i) mac(u, alpha_off() + r * T + i, s[i]);
-#pragma unroll 1
-      for (int q = 0; q < r; ++q) {
-        uint32_t d[fe::N];
-        ld(d, delta[q]);
-        mac(u, gamma_off() + r - 1 - q, d);
+      for (int k = 0; k < kOwn; ++k) {
+        const int e = kGroup * k + Lanes::lane(ln);
+        fe::wide_zero(acc[ln][k]);
+        if (e < T) {
+          uint32_t c[fe::N];
+          ld(c, elem(r * T + e));
+          fe::add(own[ln][k], own[ln][k], c, p);
+          sbox(own[ln][k]);
+        }
       }
+#pragma unroll
+    for (int k2 = 0; k2 < kOwn; ++k2) {
+      uint32_t src[L][fe::N], v[L][fe::N];
+#pragma unroll
+      for (int ln = 0; ln < L; ++ln) fe::copy(src[ln], own[ln][k2]);
+#pragma unroll 1
+      for (int l = 0; l < kGroup; ++l) {
+        const int i = kGroup * k2 + l;
+        if (i >= T) break;
+        Lanes::bcast(v, src, l);
+#pragma unroll
+        for (int ln = 0; ln < L; ++ln)
+#pragma unroll
+          for (int k = 0; k < kOwn; ++k) {
+            const int j = kGroup * k + Lanes::lane(ln);
+            if (j < T) mac(acc[ln][k], tb.mds() + j * T + i, v[ln]);
+          }
+      }
+    }
+#pragma unroll
+    for (int ln = 0; ln < L; ++ln)
+#pragma unroll
+      for (int k = 0; k < kOwn; ++k)
+        if (kGroup * k + Lanes::lane(ln) < T)
+          fe::redc_wide(own[ln][k], acc[ln][k], p, pinv);
+  }
+
+  // partial round r = kGroup s + l (s the slot, a constant here): u_r
+  // summed by the group, S-box, delta_r kept by lane l in slot s
+  template <int S>
+  FE_FN void partial_round(const uint32_t own[L][kOwn][fe::N],
+                           uint32_t dl[L][kDeltaSlots][fe::N], int l) const {
+    const int r = kGroup * S + l;
+    uint32_t acc[L][fe::W];
+#pragma unroll
+    for (int ln = 0; ln < L; ++ln) {
+      const int lane = Lanes::lane(ln);
+      fe::wide_zero(acc[ln]);
+#pragma unroll
+      for (int k = 0; k < kOwn; ++k) {
+        const int e = kGroup * k + lane;
+        if (e < T) mac(acc[ln], tb.alpha() + r * T + e, own[ln][k]);
+      }
+#pragma unroll
+      for (int s2 = 0; s2 <= S; ++s2) {
+        const int q = kGroup * s2 + lane;
+        if (q < r) mac(acc[ln], tb.gamma() + r - 1 - q, dl[ln][s2]);
+      }
+    }
+    Lanes::sum(acc);
+#pragma unroll
+    for (int ln = 0; ln < L; ++ln) {
+      uint32_t u[fe::N], c[fe::N];
+      fe::redc_wide(u, acc[ln], p, pinv);
+      ld(c, elem(tb.beta() + r));
+      fe::add(u, u, c, p);
       sbox(u);
-#pragma unroll
-      for (int w = 0; w < fe::N; ++w) delta[r][w] = u[w];
+      if (Lanes::lane(ln) == l) fe::copy(dl[ln][S], u);
     }
-    // s = A s_a + B + W delta, one row per iteration
-#pragma unroll 1
-    for (int i = 0; i < T; ++i) {
-      uint32_t acc[fe::N];
-      ld(acc, elem(b_off() + i));
-#pragma unroll
-      for (int j = 0; j < T; ++j) mac(acc, a_off() + i * T + j, s[j]);
-#pragma unroll 1
-      for (int q = 0; q < rp; ++q) {
-        uint32_t d[fe::N];
-        ld(d, delta[q]);
-        mac(acc, w_off() + i * rp + q, d);
-      }
-      to_scratch(i, acc);
-    }
-    from_scratch(s);
   }
 
-  // x: limb-major 16-bit limbs of hash b, stride B between limbs; r2 is
-  // R^2 mod p.
-  FE_FN void hash(const uint32_t* x, uint32_t* out, long long b, long long B,
-                  const uint32_t r2[fe::N]) const {
-    uint32_t s[T][fe::N];
-    uint32_t delta[kMaxRp][fe::N];     // local memory on the card
-#pragma unroll
-    for (int w = 0; w < fe::N; ++w) s[0][w] = 0;
-#pragma unroll
-    for (int a = 0; a < T - 1; ++a) {
-      const uint32_t* xa = x + (long long)a * 16 * B + b;
-      uint32_t v[fe::N];
-#pragma unroll
-      for (int w = 0; w < fe::N; ++w)
-        v[w] = xa[(2 * w) * B] | (xa[(2 * w + 1) * B] << 16);
-      fe::to_mont(s[a + 1], v, r2, p, pinv);
+  template <int S>
+  FE_FN void span_slot(const uint32_t own[L][kOwn][fe::N],
+                       uint32_t dl[L][kDeltaSlots][fe::N]) const {
+#pragma unroll 1
+    for (int l = 0; l < kGroup; ++l) {
+      if (kGroup * S + l >= tb.rp) break;
+      partial_round<S>(own, dl, l);
     }
-    const int half = rf / 2;
-#pragma unroll 1
-    for (int r = 0; r < half; ++r) full_round(s, r);
-    span(s, delta);
-#pragma unroll 1
-    for (int r = half; r < rf; ++r) full_round(s, r);
-    uint32_t d[fe::N];
-    fe::from_mont(d, s[1], p, pinv);
+  }
+
+  // the partial span on own = s_a, then s = A s_a + B + W delta
+  FE_FN void span(uint32_t own[L][kOwn][fe::N]) const {
+    uint32_t dl[L][kDeltaSlots][fe::N];
 #pragma unroll
-    for (int w = 0; w < fe::N; ++w) {
-      out[(2 * w) * B + b] = d[w] & 0xFFFFu;
-      out[(2 * w + 1) * B + b] = d[w] >> 16;
+    for (int ln = 0; ln < L; ++ln)
+#pragma unroll
+      for (int s = 0; s < kDeltaSlots; ++s)
+#pragma unroll
+        for (int w = 0; w < fe::N; ++w) dl[ln][s][w] = 0;
+    span_slot<0>(own, dl);
+    span_slot<1>(own, dl);
+    span_slot<2>(own, dl);
+    span_slot<3>(own, dl);
+    span_slot<4>(own, dl);
+    span_slot<5>(own, dl);
+    span_slot<6>(own, dl);
+    span_slot<7>(own, dl);
+    static_assert(kDeltaSlots == 8, "span_slot calls follow kDeltaSlots");
+    uint32_t next[L][kOwn][fe::N];
+#pragma unroll
+    for (int k2 = 0; k2 < kOwn; ++k2) {
+#pragma unroll 1
+      for (int l = 0; l < kGroup; ++l) {
+        const int i = kGroup * k2 + l;
+        if (i >= T) break;
+        uint32_t acc[L][fe::W];
+#pragma unroll
+        for (int ln = 0; ln < L; ++ln) {
+          const int lane = Lanes::lane(ln);
+          fe::wide_zero(acc[ln]);
+#pragma unroll
+          for (int k = 0; k < kOwn; ++k) {
+            const int e = kGroup * k + lane;
+            if (e < T) mac(acc[ln], tb.a_mat() + i * T + e, own[ln][k]);
+          }
+#pragma unroll
+          for (int s = 0; s < kDeltaSlots; ++s) {
+            const int q = kGroup * s + lane;
+            if (q < tb.rp) mac(acc[ln], tb.w_mat() + i * tb.rp + q, dl[ln][s]);
+          }
+        }
+        Lanes::sum(acc);
+#pragma unroll
+        for (int ln = 0; ln < L; ++ln) {
+          if (Lanes::lane(ln) != l) continue;
+          uint32_t v[fe::N], c[fe::N];
+          fe::redc_wide(v, acc[ln], p, pinv);
+          ld(c, elem(tb.b_vec() + i));
+          fe::add(next[ln][k2], v, c, p);
+        }
+      }
+    }
+#pragma unroll
+    for (int ln = 0; ln < L; ++ln)
+#pragma unroll
+      for (int k = 0; k < kOwn; ++k)
+        if (kGroup * k + Lanes::lane(ln) < T) fe::copy(own[ln][k], next[ln][k]);
+  }
+
+  // hash b: x holds limb-major 16-bit limbs, stride B between limbs; r2
+  // is R^2 mod p. With `store` false the lanes only take part.
+  FE_FN void hash(const uint32_t* x, uint32_t* out, long long b, long long B,
+                  const uint32_t r2[fe::N], bool store) const {
+    uint32_t own[L][kOwn][fe::N];
+#pragma unroll
+    for (int ln = 0; ln < L; ++ln)
+#pragma unroll
+      for (int k = 0; k < kOwn; ++k) {
+        const int e = kGroup * k + Lanes::lane(ln);
+#pragma unroll
+        for (int w = 0; w < fe::N; ++w) own[ln][k][w] = 0;
+        if (e == 0 || e >= T) continue;
+        const uint32_t* xa = x + (long long)(e - 1) * 16 * B + b;
+        uint32_t v[fe::N];
+#pragma unroll
+        for (int w = 0; w < fe::N; ++w)
+          v[w] = xa[(2 * w) * B] | (xa[(2 * w + 1) * B] << 16);
+        fe::to_mont(own[ln][k], v, r2, p, pinv);
+      }
+    const int half = tb.rf / 2;
+#pragma unroll 1
+    for (int r = 0; r < half; ++r) full_round(own, r);
+    span(own);
+#pragma unroll 1
+    for (int r = half; r < tb.rf; ++r) full_round(own, r);
+#pragma unroll
+    for (int ln = 0; ln < L; ++ln) {
+      if (!store || Lanes::lane(ln) != 1) continue;   // the digest, s[1]
+      uint32_t d[fe::N];
+      fe::from_mont(d, own[ln][0], p, pinv);
+#pragma unroll
+      for (int w = 0; w < fe::N; ++w) {
+        out[(2 * w) * B + b] = d[w] & 0xFFFFu;
+        out[(2 * w + 1) * B + b] = d[w] >> 16;
+      }
     }
   }
 };
 
-template <int T>
-FE_FN FoldedPoseidon<T> make_folded(const uint32_t* header,
-                                    const uint32_t* elems, int rf, int rp,
-                                    uint32_t* scratch, int stride) {
-  FoldedPoseidon<T> h;
+template <int T, class Lanes>
+FE_FN FoldedPoseidon<T, Lanes> make_folded(const uint32_t* header,
+                                           const uint32_t* elems, int rf,
+                                           int rp) {
+  FoldedPoseidon<T, Lanes> h;
   h.elems = elems;
-  h.scratch = scratch;
-  h.stride = stride;
   ld(h.p, header);
   h.pinv = header[16];
-  h.rf = rf;
-  h.rp = rp;
+  h.tb = Tables{T, rf, rp};
   return h;
-}
-
-// Elements (after the header) of the buffer for width t.
-FE_FN int folded_elems(int t, int rf, int rp) {
-  return rf * t + 2 * t * t + rp * t + 2 * rp + t + t * rp;
 }
 
 }  // namespace
@@ -228,38 +387,41 @@ FE_FN int folded_elems(int t, int rf, int rp) {
 
 #include <cuda_runtime.h>
 
+// Needs every thread of a block: the groups' lanes shuffle with a full
+// mask, so a lane past B hashes lane B - 1 again and stores nothing.
+// One block an SM at least, so nvcc may take the registers it needs:
+// under the 128 it chose for two blocks it spilled 32 bytes at t = 4/5/7
+// and ran slower on the H100.
 template <int T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 poseidon_folded_kernel(const uint32_t* __restrict__ x,
                        uint32_t* __restrict__ out,
                        const uint32_t* __restrict__ k, int rf, int rp,
                        long long B) {
-  extern __shared__ uint32_t smem[];
-  const int n_words = fe::N * folded_elems(T, rf, rp);
-  uint32_t* elems = smem;
-  uint32_t* scratch = smem + n_words;
-  for (int i = threadIdx.x; i < n_words; i += blockDim.x)
-    elems[i] = __ldg(k + kHeaderWords + i);
+  extern __shared__ uint32_t elems[];
+  const Tables tb{T, rf, rp};
+  for (int e = threadIdx.x; e < tb.n_elems(); e += blockDim.x)
+    stage_elem(e, k, tb, elems);
   __syncthreads();
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const long long b =
+      (long long)blockIdx.x * (kThreads / kGroup) + threadIdx.x / kGroup;
   uint32_t header[kHeaderWords];
 #pragma unroll
   for (int i = 0; i < kHeaderWords; ++i) header[i] = __ldg(k + i);
-  make_folded<T>(header, elems, rf, rp, scratch + threadIdx.x, kThreads)
-      .hash(x, out, b, B, header + 8);
+  make_folded<T, DeviceLanes>(header, elems, rf, rp)
+      .hash(x, out, b < B ? b : B - 1, B, header + 8, b < B);
 }
 
 template <int T>
 static int launch(const uint32_t* x, uint32_t* out, const uint32_t* k,
                   int rf, int rp, long long B, cudaStream_t stream) {
-  const size_t smem = sizeof(uint32_t) *
-      (fe::N * folded_elems(T, rf, rp) + T * fe::N * kThreads);
+  const size_t smem = sizeof(uint32_t) * fe::N * Tables{T, rf, rp}.n_elems();
   cudaError_t err = cudaFuncSetAttribute(
       poseidon_folded_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
+  const long long per = kThreads / kGroup;
+  const unsigned blocks = (unsigned)((B + per - 1) / per);
   poseidon_folded_kernel<T><<<blocks, kThreads, smem, stream>>>(x, out, k,
                                                                rf, rp, B);
   return (int)cudaGetLastError();

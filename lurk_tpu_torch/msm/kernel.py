@@ -162,16 +162,23 @@ _PARAMS: Dict[tuple, torch.Tensor] = {}
 
 def curve_params(curve: Curve, device) -> torch.Tensor:
     """The kernel's ``int32[32]`` curve buffer on ``device`` (cached):
-    p, -p^{-1} mod 2^32, 3b and R mod p (Montgomery)."""
+    p, -p^{-1} mod 2^32, 3b as a small signed integer (the kernel
+    multiplies by it with additions), 3b and R mod p (Montgomery)."""
     dev = resolve_device(device)
     key = (curve, dev)
     buf = _PARAMS.get(key)
     if buf is None:
         p = curve.p
-        w = F.ints_to_words([p, (3 * curve.b % p) * R % p, R % p])
+        b3 = 3 * curve.b % p
+        small = b3 if b3 <= p // 2 else b3 - p
+        if not 0 < abs(small) < 64:
+            raise ValueError(f"{curve.name}: 3b = {small} is not a small "
+                             f"constant")
+        w = F.ints_to_words([p, b3 * R % p, R % p])
         words = np.zeros(PARAMS_WORDS, dtype=np.uint32)
         words[0:8], words[16:24], words[24:32] = w[0], w[1], w[2]
         words[8] = (-pow(p, -1, 1 << 32)) % (1 << 32)
+        words[9] = small % (1 << 32)
         buf = _PARAMS[key] = torch.from_numpy(
             words.view(np.int32).copy()).to(dev)
     return buf
@@ -217,14 +224,20 @@ class MsmTable:
 
     def msm_async(self, scalars: Sequence[int]) -> torch.Tensor:
         """The projective ``[3, 8]`` result on the table's device,
-        without waiting for it."""
+        without waiting for it. Only the scalars' rows go to the MSM
+        (the table's first ``len(scalars)``, at least one)."""
         if len(scalars) > self.n_points:
             raise ValueError(f"{len(scalars)} scalars for a table of "
                              f"{self.n_points} bases")
-        words = np.zeros((self.n, 8), dtype=np.uint32)
+        m = max(1, len(scalars))
+        words = np.zeros((m, 8), dtype=np.uint32)
         words[:len(scalars)] = pack_scalar_words(scalars, self.curve.order)
         w = torch.from_numpy(words.view(np.int32)).to(self.device)
-        return msm_words(self, w)
+        return msm_words(self.prefix(m), w)
+
+    def prefix(self, m: int) -> "MsmTable":
+        """The table of the first ``m`` rows (a view, no copy)."""
+        return MsmTable(self.curve, min(m, self.n_points), self.rows[:m])
 
     def msm(self, scalars: Sequence[int]) -> Affine:
         """MSM of scalars against the table's first len(scalars) bases."""

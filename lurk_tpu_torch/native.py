@@ -6,8 +6,9 @@ of the sources and the flags, both at first use (never on import):
 - ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
   shared library with a plain C interface (:func:`build`, :func:`load`,
   several sources at once with :func:`build_many`);
-- ``csrc/host/<name>.cpp`` (host C++: generator derivation, SRS) is
-  compiled with ``g++`` (:func:`load_host`).
+- ``csrc/host/<name>.cpp`` (host C++: generator derivation, SRS, and a
+  runner of two kernels' per-thread bodies that includes their ``.cu``
+  sources) is compiled with ``g++`` (:func:`load_host`).
 
 A build writes a file unique to the process and ``os.replace``s it
 into place, so concurrent builds are safe. There is no fallback:
@@ -65,7 +66,8 @@ def library_path(name: str) -> Path:
 
 
 def host_library_path(name: str) -> Path:
-    return BUILD_DIR / f"host-{name}-{_tag(GXX_FLAGS, HOST_SRC.iterdir())}.so"
+    files = [*HOST_SRC.iterdir(), *(f for f in CSRC.iterdir() if f.is_file())]
+    return BUILD_DIR / f"host-{name}-{_tag(GXX_FLAGS, files)}.so"
 
 
 def build_log(name: str) -> str:
@@ -163,12 +165,14 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build(name)))
 
 
-def build_host() -> Dict[str, float]:
-    """Compile every ``csrc/host/*.cpp`` that is not built yet, one g++
-    per source, all started together; raises if g++ is missing or
-    fails. Returns the seconds each build took."""
-    names = [f.stem for f in sorted(HOST_SRC.glob("*.cpp"))
-             if not host_library_path(f.stem).exists()]
+def build_host(names: Iterable[str] = ()) -> Dict[str, float]:
+    """Compile the named ``csrc/host/<name>.cpp`` (by default every one)
+    that is not built yet, one g++ per source, all started together;
+    raises if g++ is missing or fails. Returns the seconds each build
+    took."""
+    names = [n for n in (names or [f.stem for f in
+                                   sorted(HOST_SRC.glob("*.cpp"))])
+             if not host_library_path(n).exists()]
     if not names:
         return {}
     gxx = shutil.which("g++")
@@ -181,12 +185,12 @@ def build_host() -> Dict[str, float]:
 
 
 def load_host(name: str) -> ctypes.CDLL:
-    """The library of ``csrc/host/<name>.cpp``, loaded once per process;
-    the first call builds every host source that is not built yet."""
+    """The library of ``csrc/host/<name>.cpp``, loaded once per process
+    and built first if needed."""
     with _HOST_LOCK:
         lib = _HOST_LIBS.get(name)
         if lib is None:
-            build_host()
+            build_host([name])
             lib = _HOST_LIBS[name] = ctypes.CDLL(
                 str(host_library_path(name)))
     return lib

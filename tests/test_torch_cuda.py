@@ -16,6 +16,7 @@ from lurk_tpu_torch import bench
 from lurk_tpu_torch.curves.weierstrass import CURVE_FOR_FIELD
 from lurk_tpu_torch.fields import BN256_SCALAR, FIELDS
 from lurk_tpu_torch.msm import kernel as M
+from lurk_tpu_torch.ops import field as F
 from lurk_tpu_torch.parallel import sharding
 from lurk_tpu_torch.poseidon import kernel as K
 from lurk_tpu_torch.poseidon.host import hash_preimage
@@ -180,3 +181,95 @@ def test_bench_poseidon_figures(card, schedule):
     line = bench.poseidon_bench(schedule, card)
     assert set(line) == {"metric", "value", "unit", "vs_baseline"}
     assert line["metric"] == "poseidon4_hashes_per_s" and line["value"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the redesigned K6 (equal-length slices, boundary records) and the
+# folded kernel's wide rows, on the inputs that reach their edge cases
+# ---------------------------------------------------------------------------
+
+
+CURVES = ["bn254-g1", "grumpkin", "pallas", "vesta"]
+
+
+def _msm_case(card, curve, pts, scal):
+    """Kernel = plain = host."""
+    tab = M.MsmTable.build(curve, pts, card)
+    words = torch.zeros((tab.n, 8), dtype=torch.int32, device=card)
+    words[:len(scal)] = torch.from_numpy(
+        M.pack_scalar_words(scal, curve.order).view(np.int32)).to(card)
+    got = M.to_affine(curve, M._msm_cuda(tab, words))
+    assert got == M.to_affine(curve, M.msm_plain(curve, tab.rows, words))
+    assert got == curve.pippenger(list(scal), pts[:len(scal)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve_name", CURVES)
+def test_msm_kernel_all_equal_scalars(card, curve_name):
+    curve = CURVE_BY_NAME[curve_name]
+    pts = curve.derive_generators_from(b"test_torch_cuda.equal", 0, 1 << 12)
+    s = int.from_bytes(np.random.default_rng(5).bytes(32), "little")
+    _msm_case(card, curve, pts, [s % curve.order] * len(pts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve_name", CURVES)
+def test_msm_kernel_run_lengths_around_the_slice(card, curve_name):
+    """Window-0 runs of 1, s - 1, s, s + 1 and 3 s + 1 entries after two
+    whole slices (digits below 2^15 touch no other window; most buckets
+    stay empty, runs of 0), at the kernel's slice of s = 8 entries (every
+    stream of up to 2^20 entries); then with random scalars after them."""
+    curve = CURVE_BY_NAME[curve_name]
+    s = 8
+    scal = [1] * (2 * s) + [d + 2 for d, k in enumerate(
+        (1, s - 1, s, s + 1, 3 * s + 1)) for _ in range(k)]
+    rng = np.random.default_rng(9)
+    pts = curve.derive_generators_from(b"test_torch_cuda.runs", 0,
+                                       len(scal) + (1 << 10))
+    _msm_case(card, curve, pts, scal)
+    scal += [int.from_bytes(rng.bytes(32), "little") % curve.order
+             for _ in range(1 << 10)]
+    _msm_case(card, curve, pts, scal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve_name", CURVES)
+def test_msm_kernel_repeated_and_negated_bases(card, curve_name):
+    """Bases repeated with equal scalars (a bucket doubles its point) and
+    P beside -P with equal scalars (they cancel in one bucket); then the
+    same in a stream of 4 entries, which one slice holds whole."""
+    curve = CURVE_BY_NAME[curve_name]
+    base = curve.derive_generators_from(b"test_torch_cuda.rep", 0, 256)
+    pts = base * 3 + [curve.neg(q) for q in base]
+    rng = np.random.default_rng(13)
+    vals = [int.from_bytes(rng.bytes(32), "little") % curve.order
+            for _ in range(256)]
+    _msm_case(card, curve, pts, vals * 4)
+    _msm_case(card, curve, [base[0], base[0], curve.neg(base[0]), base[1]],
+              [5, 5, 5, 7])
+
+
+@pytest.mark.cuda
+def test_msm_table_sends_only_the_scalars_rows(card):
+    curve = CURVE_BY_NAME["bn254-g1"]
+    pts = curve.derive_generators_from(b"test_torch_cuda.prefix", 0, 1000)
+    tab = M.MsmTable.build(curve, pts, card)
+    scal = list(range(3, 703))
+    words = torch.zeros((tab.n, 8), dtype=torch.int32, device=card)
+    words[:len(scal)] = torch.from_numpy(
+        M.pack_scalar_words(scal, curve.order).view(np.int32)).to(card)
+    assert tab.msm(scal) == M.to_affine(curve, M.msm_words(tab, words)) \
+        == curve.pippenger(scal, pts[:len(scal)])
+    assert tab.msm([]) is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,arity", CASES)
+def test_folded_kernel_on_p_minus_1(card, name, arity):
+    field = FIELDS[name]
+    limbs = np.repeat(np.array(F.int_to_limbs(field.modulus - 1), dtype=np.int32)
+                      [None, :, None], arity, axis=0)
+    x = torch.from_numpy(np.repeat(limbs, 300, axis=2)).to(card)
+    got = K.poseidon_hash_folded(field, arity, x)
+    assert torch.equal(got, K.poseidon_hash_folded_plain(field, arity, x))
+    assert torch.equal(got, K.poseidon_hash(field, arity, x))

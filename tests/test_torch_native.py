@@ -93,6 +93,6 @@ def test_host_build_needs_gxx(build_dir, monkeypatch):
 
 def test_host_build_compiles_every_host_source(build_dir):
     times = native.build_host()
-    assert sorted(times) == ["pedersen", "poseidon", "srs"]
+    assert sorted(times) == ["kernel_bodies", "pedersen", "poseidon", "srs"]
     assert all(native.host_library_path(n).exists() for n in times)
     assert native.build_host() == {}
