@@ -5,13 +5,23 @@ Usage: python3 chip_smoke.py   (needs one CUDA card, nvcc and g++)
 
 Phases, each fatal on failure:
   0. card: nvidia-smi name and power limit, versions; the kernel sources
-     built at once (one nvcc each), the host C++ with g++; the measured
-     32-bit IMAD rate (csrc/imad_rate.cu) and the SM clock under it,
-     beside the bounds' assumed rate;
+     built at once (one nvcc each, with ptxas' registers and stack per
+     kernel, and K1's and K2's SASS instructions counted by kind), the
+     host C++ with g++; the measured 32-bit IMAD rate
+     (csrc/imad_rate.cu) and the SM clock under it, beside the bounds'
+     assumed rate;
+  0.5 shapes: K1 and K2 each built twice more, from copies of their
+     sources whose kThreadFrom sends every batch to one shape (the lane
+     group, one thread per hash); both shapes timed at the main path's
+     wave sizes and at 2^12-2^20 (Poseidon-4 over Pallas, Poseidon-8 over
+     BN256), each launch equal to the launcher's own, beside the shape
+     the launcher takes;
   1. K1 against plain: the sparse CUDA Poseidon against its plain
-     PyTorch version on the card, 4 fields x arities 3/4/6/8 at B = 4096
-     (random canonical preimages plus all-0 and all-(p-1) lanes), 8 lanes
-     each against the host oracle, and the reference anchors through it;
+     PyTorch version on the card, 4 fields x arities 3/4/6/8 at a batch
+     below its kThreadFrom and one at or above it (both shapes; random
+     canonical preimages plus all-0 and all-(p-1) lanes), 8 lanes each
+     against the host oracle, and the reference anchors through it in
+     both shapes;
   2. K1's main path: read fib(100) -> Store(BN256, cuda) -> LEM evaluate
      (800 frames) -> hydrate_z_cache, launch count = waves >= the
      threshold, every hydrated digest against host hashing on a second
@@ -31,7 +41,8 @@ Phases, each fatal on failure:
      each kind held against the plain version at 2^16, the all-equal one
      at 2^20 by MSM(s, ..., s) = s MSM(1, ..., 1);
   5. K2, the dense Poseidon: against its plain version and the host
-     oracle (4 fields x 4 arities at B = 4096), the anchors through it,
+     oracle (4 fields x 4 arities, both shapes as in phase 1), the
+     anchors through it in both shapes,
      then its main path: fib(100) hydrated with the prover devices set to
      [cuda:0, cuda:0], two launches per batched wave, every digest
      against host hashing; Poseidon-4 at 2^17 and 2^20 against the bound;
@@ -60,8 +71,10 @@ without a CUDA card or without the rest of the repository.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -72,7 +85,12 @@ import numpy as np
 import torch
 
 SEED = 20240601
-PHASE1_BATCH = 4096
+PHASE1_SMALL = 100             # a batch the lane-group shape takes
+PHASE1_BATCH = 4096            # ... raised to kThreadFrom for the other
+# phase 0.5: (field, arity) and batches at which both shapes are timed
+SHAPE_SWEEP = [("pallas", 4), ("bn256", 8)]
+SWEEP_SIZES = [64, 114, 128, 226, 256, 344] + [1 << k for k in range(12, 21)]
+FORCED = {"group": "1LL << 62", "thread": "0"}   # kThreadFrom per shape
 SIZES = [("pallas", 1 << 17), ("pallas", 1 << 20), ("bn256", 1 << 20)]
 DENSE_SIZES = [("pallas", 1 << 17), ("pallas", 1 << 20)]
 TIMED_LAUNCHES = 10
@@ -92,6 +110,7 @@ PRODUCT = 2 * 64               # a*b: 64 wide products
 SQUARE = 2 * 36                # a*a: n(n+1)/2 = 36, cross terms doubled
 REDC = 2 * 64 + 8              # Montgomery reduction: m*p, and m itself
 MUL = PRODUCT + REDC           # one general field product, 264
+REDC_WIDE = 9 * (2 * 8 + 1)    # field.cuh's redc_wide: nine steps, 153
 # The cheapest known point additions, two products summed before one
 # reduction where a coordinate is such a sum: an affine point into a
 # bucket by XYZZ mixed addition (madd-2008-s: 8 products, 2 squarings,
@@ -189,20 +208,29 @@ def imad_per_hash(field, arity: int, kernel_schedule: bool = False,
     reduction); with ``dense`` the same count for the dense schedule
     (a full t x t MDS every round); with ``folded`` for the folded
     schedule (full rounds dense, partial round r one row of t + r terms,
-    the rebuild t rows of t + rp); with ``kernel_schedule`` what
-    csrc/poseidon.cu does (every field product a full CIOS)."""
+    the rebuild t rows of t + rp); with ``kernel_schedule`` what one
+    thread of csrc/poseidon.cu (with ``dense``: csrc/poseidon_dense.cu)
+    does for a hash: the same S-boxes, each row reduced by redc_wide's
+    nine steps, the inputs and the digest converted by full products,
+    and a sparse round's s_j += v_hat_j s0 a full product each. (The
+    lane-group shape issues more: every lane of a group runs the S-box,
+    and in K1 the reduction of the sparse round's row.)"""
     from lurk_tpu_torch.poseidon.spec import poseidon_spec
     spec = poseidon_spec(field, arity)
     t, rf, rp = spec.width, spec.full_rounds, spec.partial_rounds
     sboxes, dense_rows, sparse = rf * t + rp, rf * t, rp
-    if kernel_schedule:       # 3 products per S-box, t per row, 2t-1
-        products = arity + 1 + 3 * sboxes + t * dense_rows \
-            + sparse * (2 * t - 1)
-        return products * MUL
     def row(k):
         return k * PRODUCT + REDC
-    convert = arity * row(1) + REDC         # inputs in, the digest out
     sbox = 2 * (SQUARE + REDC) + row(1)     # x^2, x^4, x^5
+    if kernel_schedule:
+        def krow(k):
+            return k * PRODUCT + REDC_WIDE
+        convert = (arity + 1) * MUL
+        if dense:
+            return convert + sboxes * sbox + (rf + rp) * t * krow(t)
+        return (convert + sboxes * sbox + dense_rows * krow(t)
+                + sparse * (krow(t) + (t - 1) * MUL))
+    convert = arity * row(1) + REDC         # inputs in, the digest out
     if dense:
         return convert + sboxes * sbox + (rf + rp) * t * row(t)
     if folded:
@@ -262,24 +290,145 @@ def compare(field, arity, x, hash_fn, plain_fn):
     return err, got
 
 
-def poseidon_against_plain(fields, gen, dev, hash_fn, plain_fn, what):
-    """Phases 1 and 5.1: 4 fields x 4 arities at PHASE1_BATCH, 8 lanes
+def poseidon_against_plain(fields, gen, dev, hash_fn, plain_fn, what,
+                           batches):
+    """Phases 1 and 5.1: 4 fields x 4 arities at each batch size, 8 lanes
     each against the host oracle; returns the max |diff|."""
     from lurk_tpu_torch.poseidon.host import hash_preimage
     max_err = 0
     for name, field in fields.items():
-        for arity in (3, 4, 6, 8):
-            x = random_preimages(field, arity, PHASE1_BATCH, gen, dev)
-            err, out = compare(field, arity, x, hash_fn, plain_fn)
-            max_err = max(max_err, err)
-            b = PHASE1_BATCH
-            lanes = [0, 1, 2, 3, b // 4, b // 2, b - 2, b - 1]
-            pres = [lane_ints(x[a], lanes) for a in range(arity)]
-            want = [hash_preimage(field, [pres[a][j] for a in range(arity)])
-                    for j in range(len(lanes))]
-            check(lane_ints(out, lanes) == want,
-                  f"{what} {name}/{arity}: differs from the host oracle")
+        for b in batches:
+            for arity in (3, 4, 6, 8):
+                x = random_preimages(field, arity, b, gen, dev)
+                err, out = compare(field, arity, x, hash_fn, plain_fn)
+                max_err = max(max_err, err)
+                lanes = [0, 1, 2, 3, b // 4, b // 2, b - 2, b - 1]
+                pres = [lane_ints(x[a], lanes) for a in range(arity)]
+                want = [hash_preimage(field,
+                                      [pres[a][j] for a in range(arity)])
+                        for j in range(len(lanes))]
+                check(lane_ints(out, lanes) == want,
+                      f"{what} {name}/{arity} B={b}: differs from the host "
+                      f"oracle")
     return max_err
+
+
+def shape_batches(name: str):
+    """Phase 1's and 5.1's batches for kernel ``name``: one each side of
+    its kThreadFrom."""
+    from lurk_tpu_torch.poseidon import kernel as K
+    return [PHASE1_SMALL, max(PHASE1_BATCH, K.thread_from(name))]
+
+
+def shape_of(name: str, b: int) -> str:
+    from lurk_tpu_torch.poseidon import kernel as K
+    return "thread" if b >= K.thread_from(name) else "group"
+
+
+def anchors(hash_batch, name: str, dev, what: str):
+    """commit(Num(0)) and the trie roots through ``hash_batch`` in both
+    shapes: each preimage alone and repeated kThreadFrom times."""
+    from lurk_tpu_torch.fields import BN256_SCALAR
+    from lurk_tpu_torch.poseidon import kernel as K
+    for n in (1, K.thread_from(name)):
+        check(set(hash_batch(BN256_SCALAR, 3, [[0, 4, 0]] * n, device=dev))
+              == {COMMIT_NUM0}, f"commit(Num(0)) anchor through {what}, "
+              f"B={n}")
+        h = 0
+        for want in TRIE_ROOTS:
+            hs = set(hash_batch(BN256_SCALAR, 8, [[h] * 8] * n, device=dev))
+            check(hs == {want}, f"trie empty-root anchor through {what}, "
+                  f"B={n}")
+            h = want
+
+
+def start_shape_builds():
+    """Phase 0.5's libraries: nvcc on copies of csrc/poseidon.cu and
+    csrc/poseidon_dense.cu (in the build directory) whose kThreadFrom
+    sends every batch to one shape, all started at once. Returns
+    {(name, shape): (process, library path)}."""
+    from lurk_tpu_torch import native
+    out = native.BUILD_DIR / "shapes"
+    out.mkdir(parents=True, exist_ok=True)
+    builds = {}
+    for name in ("poseidon", "poseidon_dense"):
+        src = (native.CSRC / f"{name}.cu").read_text()
+        for shape, value in FORCED.items():
+            text, n = re.subn(r"constexpr long long kThreadFrom = [^;]+;",
+                              f"constexpr long long kThreadFrom = {value};",
+                              src)
+            check(n == 1, f"{name}.cu: no single kThreadFrom to set")
+            cu = out / f"{name}_{shape}.cu"
+            cu.write_text(text)
+            so = cu.with_suffix(".so")
+            proc = subprocess.Popen(
+                [native.nvcc(), *native.NVCC_FLAGS, "-I", str(native.CSRC),
+                 str(cu), "-o", str(so)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+            builds[(name, shape)] = (proc, so)
+    return builds
+
+
+def shape_sweep(builds, gen, dev):
+    """Phase 0.5: both shapes of K1 and K2 (the libraries of
+    start_shape_builds) timed at SWEEP_SIZES, each launch's digests
+    equal to the launcher's own."""
+    from lurk_tpu_torch import native
+    from lurk_tpu_torch.fields import FIELDS
+    from lurk_tpu_torch.poseidon import kernel as K
+    t0 = time.perf_counter()
+    fns = {}
+    for (name, shape), (proc, so) in builds.items():
+        out, _ = proc.communicate(timeout=native.BUILD_TIMEOUT_S)
+        check(proc.returncode == 0, f"{name}.cu forced to the {shape} shape "
+              f"did not build:\n{out[-3000:]}")
+        fn = getattr(ctypes.CDLL(str(so)), K._ENTRY[name])
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, i, i, i, ctypes.c_longlong, p]
+        fn.restype = i
+        fns[(name, shape)] = fn
+    print(f"phase 0.5: both shapes of K1 and K2 (built beside phase 0, "
+          f"waited {time.perf_counter() - t0:.1f} s)")
+    kernels = {"poseidon": (K.poseidon_hash, K._layout, K.constants),
+               "poseidon_dense": (K.poseidon_hash_dense, K._dense_layout,
+                                  K.dense_constants)}
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    for name, (hash_fn, layout, consts) in kernels.items():
+        worst = 0.0
+        for fname, arity in SHAPE_SWEEP:
+            field = FIELDS[fname]
+            lay = layout(field, arity)
+            buf = consts(field, arity, dev)
+            for b in SWEEP_SIZES:
+                x = random_preimages(field, arity, b, gen, dev)
+                want = hash_fn(field, arity, x)
+                ms = {}
+                for shape in FORCED:
+                    out = torch.empty((16, b), dtype=torch.int32, device=dev)
+                    args = (ctypes.c_void_p(x.data_ptr()),
+                            ctypes.c_void_p(out.data_ptr()),
+                            ctypes.c_void_p(buf.data_ptr()), arity, lay.rf,
+                            lay.rp, b, stream)
+
+                    def launch():
+                        check(fns[(name, shape)](*args) == 0,
+                              f"{name} {shape} launch failed")
+
+                    ms[shape] = time_ms(launch, 3 if b >= 1 << 18 else 10)
+                    check(torch.equal(out, want), f"{name} {shape} shape "
+                          f"differs from the launcher at {fname}/{arity} "
+                          f"B={b}")
+                taken = shape_of(name, b)
+                loss = ms[taken] / min(ms.values()) - 1
+                worst = max(worst, loss)
+                print(f"  {name} {fname}/{arity} B={b}: group "
+                      f"{ms['group']:.4f} ms, thread {ms['thread']:.4f} ms; "
+                      f"the launcher takes {taken}"
+                      + (f", {loss:.1%} slower than the other" if loss > 0
+                         else ""))
+        print(f"  {name}: kThreadFrom = {K.thread_from(name)}; the taken "
+              f"shape is at most {worst:.1%} slower than the other at the "
+              f"sizes above")
 
 
 def random_words(rng, order: int, n: int) -> np.ndarray:
@@ -544,15 +693,11 @@ def phase5(bound, gen, dev, host, devices):
     from lurk_tpu_torch.symbol import user_sym
 
     t0 = time.perf_counter()
+    batches = shape_batches("poseidon_dense")
     max_err = poseidon_against_plain(
         FIELDS, gen, dev, K.poseidon_hash_dense, K.poseidon_hash_dense_plain,
-        "dense")
-    check(K.hash_batch_dense(BN256_SCALAR, 3, [[0, 4, 0]], device=dev)
-          == [COMMIT_NUM0], "commit(Num(0)) anchor through K2")
-    h = 0
-    for want in TRIE_ROOTS:
-        (h,) = K.hash_batch_dense(BN256_SCALAR, 8, [[h] * 8], device=dev)
-        check(h == want, "trie empty-root anchor through K2")
+        "dense", batches)
+    anchors(K.hash_batch_dense, "poseidon_dense", dev, "K2")
     sharding._PROVER_DEVICES = devices
     anchor = Store(BN256_SCALAR, device=dev)
     xs = anchor.intern_symbol(user_sym("x"))
@@ -563,12 +708,15 @@ def phase5(bound, gen, dev, host, devices):
     core._DEVICE_WAVE_THRESHOLD = threshold
     check(K.dense_launches > before, "the anchor's waves missed K2")
     z = anchor.hash_ptr(fun)
-    check(K.hash_batch_dense(BN256_SCALAR, 3, [[0, z.tag, z.digest]],
-                             device=dev) == [COMMIT_ID_FUN],
-          "(lambda (x) x) commitment anchor through K2")
+    for n in (1, batches[1]):
+        check(set(K.hash_batch_dense(BN256_SCALAR, 3,
+                                     [[0, z.tag, z.digest]] * n, device=dev))
+              == {COMMIT_ID_FUN},
+              f"(lambda (x) x) commitment anchor through K2, B={n}")
     print(f"phase 5.1: dense kernel = plain = host oracle on 16 "
-          f"field/arity pairs at B={PHASE1_BATCH}; anchors hold through "
-          f"K2 ({time.perf_counter() - t0:.1f} s)")
+          f"field/arity pairs at B={batches} (group, thread shape); "
+          f"anchors hold through K2 in both shapes "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     # the main path: fib(100) hydrated over two prover devices
     big = []                            # (arity, size) of sharded waves
@@ -617,9 +765,10 @@ def phase5(bound, gen, dev, host, devices):
         p_ms = time_ms(
             lambda: K.poseidon_hash_dense_plain(BN256_SCALAR, arity, x), 1)
         b_ms, by = bound.of(BN256_SCALAR, arity, per, const_bytes[arity])
-        print(f"  wave arity {arity} B={n}, 2 shards of {per}: kernel "
+        print(f"  wave arity {arity} B={n}, 2 shards of {per} "
+              f"({shape_of('poseidon_dense', per)} shape): kernel "
               f"{k_ms:.4f} ms, plain {p_ms:.1f} ms, bound {b_ms:.6f} ms "
-              f"({by}) per shard")
+              f"({by}), {b_ms / k_ms:.2%} of it, per shard")
         ms, plain_ms = ms + 2 * k_ms, plain_ms + 2 * p_ms
         bound_ms += 2 * b_ms
         bound_by.add(by)
@@ -630,12 +779,16 @@ def phase5(bound, gen, dev, host, devices):
         k_ms = time_ms(lambda: K.poseidon_hash_dense(field, 4, x),
                        TIMED_LAUNCHES)
         b_ms, by = bound.of(field, 4, b, const_bytes[4])
-        print(f"phase 5.3: dense Poseidon-4 {name} B=2^{b.bit_length() - 1}:"
-              f" {k_ms:.3f} ms/launch, {b / k_ms * 1e3:,.0f} hashes/s; bound "
-              f"{b_ms:.3f} ms ({by}: {imad_per_hash(field, 4)} IMAD per "
-              f"hash, the digest's least work), {b_ms / k_ms:.1%} of it; "
-              f"the dense schedule does {imad_per_hash(field, 4, dense=True)}"
-              f" IMAD per hash")
+        least = imad_per_hash(field, 4)
+        dense_imad = imad_per_hash(field, 4, dense=True)
+        print(f"phase 5.3: dense Poseidon-4 {name} B=2^{b.bit_length() - 1}"
+              f" ({shape_of('poseidon_dense', b)} shape): {k_ms:.3f} "
+              f"ms/launch, {b / k_ms * 1e3:,.0f} hashes/s; bound "
+              f"{b_ms:.3f} ms ({by}: {least} IMAD per hash, the digest's "
+              f"least work), {b_ms / k_ms:.1%} of it; the dense schedule "
+              f"needs {dense_imad} IMAD per hash (at most "
+              f"{least / dense_imad:.1%} of the bound), the kernel does "
+              f"{imad_per_hash(field, 4, kernel_schedule=True, dense=True)}")
     return {"name": "poseidon_dense", "route": "cuda",
             "source": "lurk_tpu_torch/csrc/poseidon_dense.cu",
             "replaces": "lurk_tpu/poseidon/pallas_nib12.py:125",
@@ -679,7 +832,7 @@ def phase6(bound, gen, dev):
     t0 = time.perf_counter()
     max_err = poseidon_against_plain(
         FIELDS, gen, dev, K.poseidon_hash_folded,
-        K.poseidon_hash_folded_plain, "folded")
+        K.poseidon_hash_folded_plain, "folded", [PHASE1_BATCH])
     check(K.hash_batch_folded(BN256_SCALAR, 3, [[0, 4, 0]], device=dev)
           == [COMMIT_NUM0], "commit(Num(0)) anchor through the folded kernel")
     h = 0
@@ -919,6 +1072,43 @@ def imad_rate(sms: int):
     return IMAD_LAUNCHES * imad / (ms * 1e-3), clock
 
 
+def sass_mix(name: str) -> None:
+    """Print, for each kernel of csrc/<name>.cu's library, its SASS
+    instructions (cuobjdump --dump-sass, static counts over the whole
+    kernel) by kind: IMAD (every IMAD form, IMAD.WIDE counted once), the
+    integer adds and selects around the products (IADD3, SEL, ISETP,
+    LOP3, SHF), shared-memory loads and stores, shuffles, and the rest."""
+    from lurk_tpu_torch import native
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print(f"  {name}.cu: cuobjdump not found, no SASS counts")
+        return
+    out = subprocess.run([tool, "--dump-sass",
+                          str(native.library_path(name))],
+                         capture_output=True, text=True, timeout=300).stdout
+    kinds = [("IMAD", ("IMAD",)), ("add/select", ("IADD3", "SEL", "ISETP",
+                                                  "LOP3", "SHF")),
+             ("LDS/STS", ("LDS", "STS")), ("SHFL", ("SHFL",))]
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = dict.fromkeys([k for k, _ in kinds] + ["other"], 0)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                     line)
+        if fn is None or m is None:
+            continue
+        op = m.group(1).split(".")[0]
+        kind = next((k for k, ops in kinds if op in ops), "other")
+        counts[fn][kind] += 1
+    for fn, c in counts.items():
+        total = sum(c.values())
+        print(f"  {name}.cu SASS {fn}: {total} instructions, "
+              + ", ".join(f"{k} {v} ({v / total:.0%})" for k, v in c.items()))
+
+
 def build_and_probe():
     """Phase 0: the card, the builds (with ptxas's registers and stack)
     and the IMAD probe. Returns (nvidia-smi line, Bound)."""
@@ -931,6 +1121,7 @@ def build_and_probe():
           f"{clock:.0f} MHz; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
+    shape_builds = start_shape_builds()
     times = native.build_many(SOURCES)
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(SOURCES)} "
           f"sources at once (nvcc, sm_90a)")
@@ -939,6 +1130,8 @@ def build_and_probe():
         for line in native.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("    ptxas:", line.strip())
+    for name in ("poseidon", "poseidon_dense"):
+        sass_mix(name)
     t0 = time.perf_counter()
     host_times = native.build_host()
     print(f"host C++ (g++, at once): {time.perf_counter() - t0:.1f} s "
@@ -953,7 +1146,7 @@ def build_and_probe():
           f"the max clock {clock:.0f} MHz), {rate / bound.imad_per_s:.1%} "
           f"of it; {IMAD_PER_CLK_PER_SM}/clk/SM at {load_clock:.0f} MHz is "
           f"{at_load:.4e}, {rate / at_load:.1%} of that")
-    return smi, bound
+    return smi, bound, shape_builds
 
 
 def main() -> int:
@@ -979,20 +1172,18 @@ def main() -> int:
     t_all = time.perf_counter()
 
     # ---- phase 0: card, build, IMAD probe ----
-    smi, bound = build_and_probe()
+    smi, bound, shape_builds = build_and_probe()
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
+    shape_sweep(shape_builds, gen, dev)
 
     # ---- phase 1: kernel against plain, oracle and anchors ----
     t0 = time.perf_counter()
+    batches = shape_batches("poseidon")
     max_err = poseidon_against_plain(FIELDS, gen, dev, K.poseidon_hash,
-                                     K.poseidon_hash_plain, "sparse")
-    check(K.hash_batch(BN256_SCALAR, 3, [[0, 4, 0]], device=dev)
-          == [COMMIT_NUM0], "commit(Num(0)) anchor through the kernel")
-    h = 0
-    for want in TRIE_ROOTS:
-        (h,) = K.hash_batch(BN256_SCALAR, 8, [[h] * 8], device=dev)
-        check(h == want, "trie empty-root anchor through the kernel")
+                                     K.poseidon_hash_plain, "sparse",
+                                     batches)
+    anchors(K.hash_batch, "poseidon", dev, "K1")
     anchor = Store(BN256_SCALAR, device=dev)
     xs = anchor.intern_symbol(user_sym("x"))
     fun = anchor.intern_fun(anchor.list([xs]), xs, anchor.intern_empty_env())
@@ -1002,10 +1193,13 @@ def main() -> int:
     core._DEVICE_WAVE_THRESHOLD = threshold
     check(K.launches > before, "the anchor's waves missed the kernel")
     z = anchor.hash_ptr(fun)
-    check(K.hash_batch(BN256_SCALAR, 3, [[0, z.tag, z.digest]], device=dev)
-          == [COMMIT_ID_FUN], "(lambda (x) x) commitment anchor")
-    print(f"phase 1: 16 field/arity pairs at B={PHASE1_BATCH}, 0 "
-          f"mismatches, anchors hold ({time.perf_counter() - t0:.1f} s)")
+    for n in (1, batches[1]):
+        check(set(K.hash_batch(BN256_SCALAR, 3, [[0, z.tag, z.digest]] * n,
+                               device=dev)) == {COMMIT_ID_FUN},
+              f"(lambda (x) x) commitment anchor, B={n}")
+    print(f"phase 1: 16 field/arity pairs at B={batches} (group, thread "
+          f"shape), 0 mismatches, anchors hold in both shapes "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     # ---- phase 2: main path ----
     big = []                            # (arity, size) of batched waves
@@ -1057,8 +1251,9 @@ def main() -> int:
         p_ms = time_ms(
             lambda: K.poseidon_hash_plain(BN256_SCALAR, arity, x), 1)
         b_ms, by = bound.of(BN256_SCALAR, arity, b, const_bytes[arity])
-        print(f"  wave arity {arity} B={b}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.1f} ms, bound {b_ms:.6f} ms ({by})")
+        print(f"  wave arity {arity} B={b} ({shape_of('poseidon', b)} "
+              f"shape): kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms, bound "
+              f"{b_ms:.6f} ms ({by}), {b_ms / k_ms:.2%} of it")
         ms, plain_ms, bound_ms = ms + k_ms, plain_ms + p_ms, bound_ms + b_ms
         bound_by.add(by)
 
@@ -1068,13 +1263,14 @@ def main() -> int:
         x = random_preimages(field, 4, b, gen, dev)
         k_ms = time_ms(lambda: K.poseidon_hash(field, 4, x), TIMED_LAUNCHES)
         b_ms, by = bound.of(field, 4, b, const_bytes[4])
-        line = (f"phase 3: Poseidon-4 {name} B=2^{b.bit_length() - 1}: "
-                f"{k_ms:.3f} ms/launch, {b / k_ms * 1e3:,.0f} hashes/s; "
-                f"bound {b_ms:.3f} ms ({by}: {imad_per_hash(field, 4)} "
-                f"IMAD per hash at {bound.imad_per_s:.3e} IMAD/s), "
-                f"{b_ms / k_ms:.1%} of it; the kernel's schedule does "
-                f"{imad_per_hash(field, 4, kernel_schedule=True)} IMAD "
-                f"per hash")
+        line = (f"phase 3: Poseidon-4 {name} B=2^{b.bit_length() - 1} "
+                f"({shape_of('poseidon', b)} shape): {k_ms:.3f} ms/launch, "
+                f"{b / k_ms * 1e3:,.0f} hashes/s; bound {b_ms:.3f} ms ({by}: "
+                f"{imad_per_hash(field, 4)} IMAD per hash at "
+                f"{bound.imad_per_s:.3e} IMAD/s), {b_ms / k_ms:.1%} of it; "
+                f"the kernel's schedule does "
+                f"{imad_per_hash(field, 4, kernel_schedule=True)} IMAD per "
+                f"hash")
         if b == 1 << 17:
             max_err = max(max_err, compare(field, 4, x, K.poseidon_hash,
                                            K.poseidon_hash_plain)[0])

@@ -7,13 +7,15 @@
 // below 2^255, so a sum or a CIOS result of canonical inputs is below
 // 2p < 2^256 and one conditional subtraction makes it canonical.
 //
-// On the card the additions, subtractions and the wide accumulation are
-// PTX carry chains (add.cc / addc, mad.lo.cc / madc.hi.cc), one asm block
-// per chain, so nothing the compiler emits can land between two
-// instructions that pass the carry flag; the CIOS product stays C (see
-// mul). Without __CUDA_ARCH__ (g++, or nvcc's host pass) each chain has a
-// plain C++ body with the same results, so the arithmetic can be checked
-// off the card; nothing on the card takes that body.
+// On the card the additions, subtractions and the sums of wide products
+// are PTX carry chains (add.cc / addc), one asm block per chain, so
+// nothing the compiler emits can land between two instructions that pass
+// the carry flag; the products and reductions (mul, mad_row, sqr_wide,
+// redc_steps) are C with 64-bit multiply-adds, which nvcc lets overlap
+// where one PTX carry flag per thread serialises them (see mul). Without
+// __CUDA_ARCH__ (g++, or nvcc's host pass) each PTX chain has a plain C++
+// body with the same results, so the arithmetic can be checked off the
+// card; nothing on the card takes that body.
 //
 // Besides the CIOS product (mul), a row of products can be summed
 // unreduced and reduced once: mul_wide gives the 512-bit product,
@@ -22,6 +24,8 @@
 // input below p 2^288: 66 products of canonical values are below
 // 66 p^2 < 2^515, far inside. Because redc_wide divides by 2^288, one
 // factor of each product carries an extra 2^32 (scale_32 makes it).
+// sqr squares with 36 wide products (sqr_wide) and the eight-step
+// reduction (redc_steps<8>, R = 2^256), the same value as mul(a, a).
 #pragma once
 
 #include <stdint.h>
@@ -183,31 +187,6 @@ FE_FN bool is_zero(const uint32_t a[N]) {
 // t[0..9] += a * b (a: 8 words, b: one word). The caller guarantees the
 // sum fits in t[0..9]; the carry out of t[8] lands in t[9].
 FE_FN void mad_row(uint32_t t[N + 2], const uint32_t a[N], uint32_t b) {
-#ifdef __CUDA_ARCH__
-  asm("mad.lo.cc.u32 %0, %10, %18, %0;\n\t"
-      "madc.lo.cc.u32 %1, %11, %18, %1;\n\t"
-      "madc.lo.cc.u32 %2, %12, %18, %2;\n\t"
-      "madc.lo.cc.u32 %3, %13, %18, %3;\n\t"
-      "madc.lo.cc.u32 %4, %14, %18, %4;\n\t"
-      "madc.lo.cc.u32 %5, %15, %18, %5;\n\t"
-      "madc.lo.cc.u32 %6, %16, %18, %6;\n\t"
-      "madc.lo.cc.u32 %7, %17, %18, %7;\n\t"
-      "addc.cc.u32 %8, %8, 0;\n\t"
-      "addc.u32 %9, %9, 0;\n\t"
-      "mad.hi.cc.u32 %1, %10, %18, %1;\n\t"
-      "madc.hi.cc.u32 %2, %11, %18, %2;\n\t"
-      "madc.hi.cc.u32 %3, %12, %18, %3;\n\t"
-      "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
-      "madc.hi.cc.u32 %5, %14, %18, %5;\n\t"
-      "madc.hi.cc.u32 %6, %15, %18, %6;\n\t"
-      "madc.hi.cc.u32 %7, %16, %18, %7;\n\t"
-      "madc.hi.cc.u32 %8, %17, %18, %8;\n\t"
-      "addc.u32 %9, %9, 0;"
-      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
-        "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
-        "r"(a[6]), "r"(a[7]), "r"(b));
-#else
   uint64_t c = 0;
   for (int j = 0; j < N; ++j) {
     c += (uint64_t)a[j] * b + t[j];
@@ -217,14 +196,15 @@ FE_FN void mad_row(uint32_t t[N + 2], const uint32_t a[N], uint32_t b) {
   c += t[N];
   t[N] = (uint32_t)c;
   t[N + 1] += (uint32_t)(c >> 32);
-#endif
 }
 
 // r = a * b / R mod p (CIOS). Canonical for a < 2^256 and b < p (or
 // the other way round). r may alias a or b. Written in C on the card as
 // well: nvcc's 64-bit multiply-adds let independent products overlap,
 // which one PTX carry flag per thread serialises; a PTX version ran K1,
-// K2, the folded kernel and K6's accumulation slower on the H100.
+// K2, the folded kernel and K6's accumulation slower on the H100, and
+// PTX versions of mad_row and redc_steps ran K1, K2 and the folded
+// kernel up to 1.3x slower than these C ones.
 FE_FN void mul(uint32_t r[N], const uint32_t a[N], const uint32_t b[N],
                const uint32_t p[N], uint32_t pinv) {
   uint32_t t[N + 2];
@@ -333,48 +313,21 @@ FE_FN void wide_zero(uint32_t acc[W]) {
   for (int j = 0; j < W; ++j) acc[j] = 0;
 }
 
-// r = acc / 2^288 mod p, canonical, for acc < p 2^288 (Montgomery
-// reduction, nine steps). The pending carry of step i belongs to word
-// i + 9 and is added at the end of step i + 1's low chain.
-FE_FN void redc_wide(uint32_t r[N], const uint32_t acc[W],
-                     const uint32_t p[N], uint32_t pinv) {
-  uint32_t t[W + 1];
+// r = acc / 2^(32 S) mod p, canonical, for acc (N + S words) below
+// p 2^(32 S): S Montgomery reduction steps. The carry out of step i's
+// word i + 8 belongs to word i + 9 and is added in step i + 1.
+template <int S>
+FE_FN void redc_steps(uint32_t r[N], const uint32_t acc[N + S],
+                      const uint32_t p[N], uint32_t pinv) {
+  uint32_t t[N + S + 1];
 #pragma unroll
-  for (int j = 0; j < W; ++j) t[j] = acc[j];
-  t[W] = 0;
+  for (int j = 0; j < N + S; ++j) t[j] = acc[j];
+  t[N + S] = 0;
   uint32_t hold = 0;
 #pragma unroll
-  for (int i = 0; i < N + 1; ++i) {
+  for (int i = 0; i < S; ++i) {
     const uint32_t m = t[i] * pinv;
     uint32_t* u = t + i;
-#ifdef __CUDA_ARCH__
-    uint32_t c1, c2;
-    asm("mad.lo.cc.u32 %0, %11, %19, %0;\n\t"
-        "madc.lo.cc.u32 %1, %12, %19, %1;\n\t"
-        "madc.lo.cc.u32 %2, %13, %19, %2;\n\t"
-        "madc.lo.cc.u32 %3, %14, %19, %3;\n\t"
-        "madc.lo.cc.u32 %4, %15, %19, %4;\n\t"
-        "madc.lo.cc.u32 %5, %16, %19, %5;\n\t"
-        "madc.lo.cc.u32 %6, %17, %19, %6;\n\t"
-        "madc.lo.cc.u32 %7, %18, %19, %7;\n\t"
-        "addc.cc.u32 %8, %8, %20;\n\t"
-        "addc.u32 %9, 0, 0;\n\t"
-        "mad.hi.cc.u32 %1, %11, %19, %1;\n\t"
-        "madc.hi.cc.u32 %2, %12, %19, %2;\n\t"
-        "madc.hi.cc.u32 %3, %13, %19, %3;\n\t"
-        "madc.hi.cc.u32 %4, %14, %19, %4;\n\t"
-        "madc.hi.cc.u32 %5, %15, %19, %5;\n\t"
-        "madc.hi.cc.u32 %6, %16, %19, %6;\n\t"
-        "madc.hi.cc.u32 %7, %17, %19, %7;\n\t"
-        "madc.hi.cc.u32 %8, %18, %19, %8;\n\t"
-        "addc.u32 %10, 0, 0;"
-        : "+r"(u[0]), "+r"(u[1]), "+r"(u[2]), "+r"(u[3]), "+r"(u[4]),
-          "+r"(u[5]), "+r"(u[6]), "+r"(u[7]), "+r"(u[8]), "=r"(c1),
-          "=r"(c2)
-        : "r"(p[0]), "r"(p[1]), "r"(p[2]), "r"(p[3]), "r"(p[4]),
-          "r"(p[5]), "r"(p[6]), "r"(p[7]), "r"(m), "r"(hold));
-    hold = c1 + c2;
-#else
     uint64_t c = 0;
     for (int j = 0; j < N; ++j) {
       c += (uint64_t)p[j] * m + u[j];
@@ -384,9 +337,57 @@ FE_FN void redc_wide(uint32_t r[N], const uint32_t acc[W],
     c += (uint64_t)u[N] + hold;
     u[N] = (uint32_t)c;
     hold = (uint32_t)(c >> 32);
-#endif
   }
-  cond_sub_p(r, t + N + 1, t[2 * N + 1] + hold, p);
+  cond_sub_p(r, t + S, t[N + S] + hold, p);
+}
+
+// r = acc / 2^288 mod p, canonical, for acc < p 2^288 (nine steps).
+FE_FN void redc_wide(uint32_t r[N], const uint32_t acc[W],
+                     const uint32_t p[N], uint32_t pinv) {
+  redc_steps<N + 1>(r, acc, p, pinv);
+}
+
+// t[0..15] = a^2: the 28 products a_i a_j (i < j) once, doubled, plus
+// the 8 squares a_i^2; 36 wide products against mul_wide's 64. In C on
+// the card as well, as mul.
+FE_FN void sqr_wide(uint32_t t[2 * N], const uint32_t a[N]) {
+  uint32_t u[2 * N];
+#pragma unroll
+  for (int j = 0; j < 2 * N; ++j) u[j] = 0;
+#pragma unroll
+  for (int i = 0; i < N - 1; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = i + 1; j < N; ++j) {
+      c += (uint64_t)a[i] * a[j] + u[i + j];
+      u[i + j] = (uint32_t)c;
+      c >>= 32;
+    }
+    u[i + N] = (uint32_t)c;       // no row wrote this word yet
+  }
+  // the cross sum is below 2^511, so doubling it shifts no bit out
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const uint64_t d = (uint64_t)a[i] * a[i];
+    const uint32_t lo = (u[2 * i] << 1) | (i ? u[2 * i - 1] >> 31 : 0);
+    const uint32_t hi = (u[2 * i + 1] << 1) | (u[2 * i] >> 31);
+    c += (uint64_t)lo + (uint32_t)d;
+    t[2 * i] = (uint32_t)c;
+    c >>= 32;
+    c += (uint64_t)hi + (d >> 32);
+    t[2 * i + 1] = (uint32_t)c;
+    c >>= 32;
+  }
+}
+
+// r = a^2 / R mod p, canonical, for canonical a: mul(r, a, a) with 36
+// wide products and one reduction of eight steps. r may alias a.
+FE_FN void sqr(uint32_t r[N], const uint32_t a[N], const uint32_t p[N],
+               uint32_t pinv) {
+  uint32_t t[2 * N];
+  sqr_wide(t, a);
+  redc_steps<N>(r, t, p, pinv);
 }
 
 // Montgomery form of any a < 2^256 (reduced mod p on the way).

@@ -1,16 +1,20 @@
-// Host runner of two CUDA kernels' per-thread bodies, for checking their
-// arithmetic off the card: csrc/msm.cu (K6) and csrc/poseidon_folded.cu
-// compile here with g++ (their __global__ kernels and launchers sit
-// under __CUDACC__), and these functions run the bodies in the order
-// the launchers run them, one index after another. Built by
-// lurk_tpu_torch/native.py:build_host; tests/test_torch_kernel_bodies.py
-// holds the results against msm/kernel.py:msm_plain and
-// poseidon/kernel.py:poseidon_hash_folded_plain.
+// Host runner of the CUDA kernels' per-thread bodies, for checking their
+// arithmetic off the card: csrc/msm.cu (K6), csrc/poseidon_folded.cu,
+// csrc/poseidon.cu (K1) and csrc/poseidon_dense.cu (K2) compile here
+// with g++ (their __global__ kernels and launchers sit under
+// __CUDACC__), and these functions run the bodies in the order the
+// launchers run them, one index after another; K1's and K2's in both
+// shapes (a lane group per hash, its lanes as arrays, and one thread
+// per hash). Built by lurk_tpu_torch/native.py:build_host;
+// tests/test_torch_kernel_bodies.py holds the results against
+// msm/kernel.py:msm_plain and poseidon/kernel.py's plain versions.
 
 #include <cstdint>
 #include <vector>
 
 #include "../msm.cu"
+#include "../poseidon.cu"
+#include "../poseidon_dense.cu"
 #include "../poseidon_folded.cu"
 
 namespace {
@@ -25,9 +29,90 @@ void folded_batch(const uint32_t* x, uint32_t* out, const uint32_t* k,
   for (long long b = 0; b < B; ++b) h.hash(x, out, b, B, k + 8, true);
 }
 
+// K1 or K2 (Kn = k1 or k2) on B hashes in both shapes: the group's
+// digests to group_out, one thread's to thread_out.
+template <class Tables, class Group, class Thread>
+void shapes_batch(const uint32_t* x, uint32_t* group_out,
+                  uint32_t* thread_out, const uint32_t* k, Tables tb,
+                  long long B) {
+  std::vector<uint32_t> el((size_t)fe::N * tb.n_elems());
+  for (int e = 0; e < tb.n_elems(); ++e)
+    pos::stage(e, k, tb.scaled(e), el.data());
+  Group gr;
+  gr.el = el.data();
+  gr.g.f.load(k);
+  gr.tb = tb;
+  for (long long b = 0; b < B; ++b) gr.hash(x, group_out, b, B, k + 8, true);
+  std::vector<uint32_t> scratch((size_t)fe::N * tb.t);
+  Thread th;
+  th.el = el.data();
+  th.scratch = scratch.data();
+  th.stride = 1;
+  th.f.load(k);
+  th.tb = tb;
+  for (long long b = 0; b < B; ++b) th.hash(x, thread_out, b, B, k + 8);
+}
+
+template <int T>
+void sparse_batch(const uint32_t* x, uint32_t* group_out,
+                  uint32_t* thread_out, const uint32_t* k, int rf, int rp,
+                  long long B) {
+  using Lanes = pos::HostLanes<pos::group_size<T>()>;
+  shapes_batch<k1::Tables, k1::Group<T, Lanes>, k1::Thread<T>>(
+      x, group_out, thread_out, k, k1::Tables{T, rf, rp}, B);
+}
+
+template <int T>
+void dense_batch(const uint32_t* x, uint32_t* group_out,
+                 uint32_t* thread_out, const uint32_t* k, int rf, int rp,
+                 long long B) {
+  using Lanes = pos::HostLanes<pos::group_size<T>()>;
+  shapes_batch<k2::Tables, k2::Group<T, Lanes>, k2::Thread<T>>(
+      x, group_out, thread_out, k, k2::Tables{T, rf, rp}, B);
+}
+
 }  // namespace
 
 extern "C" {
+
+// sq[i] = fe::sqr(a[i]) and mu[i] = fe::mul(a[i], a[i]) for n canonical
+// elements a (8 words each).
+void lurk_host_sqr(const uint32_t* a, int n, const uint32_t* p,
+                   uint32_t pinv, uint32_t* sq, uint32_t* mu) {
+  for (int i = 0; i < n; ++i) {
+    fe::sqr(sq + fe::N * i, a + fe::N * i, p, pinv);
+    fe::mul(mu + fe::N * i, a + fe::N * i, a + fe::N * i, p, pinv);
+  }
+}
+
+// As lurk_poseidon_sparse (K1) and lurk_poseidon_dense (K2), on host
+// buffers, in both shapes (group_out, thread_out); return 0, or -1 for
+// an arity or schedule the kernels do not take.
+int lurk_host_poseidon_sparse(const uint32_t* x, uint32_t* group_out,
+                              uint32_t* thread_out, const uint32_t* k,
+                              int arity, int rf, int rp, long long B) {
+  if (B <= 0 || rf < 2 || rp < 1) return -1;
+  switch (arity) {
+    case 3: sparse_batch<4>(x, group_out, thread_out, k, rf, rp, B); return 0;
+    case 4: sparse_batch<5>(x, group_out, thread_out, k, rf, rp, B); return 0;
+    case 6: sparse_batch<7>(x, group_out, thread_out, k, rf, rp, B); return 0;
+    case 8: sparse_batch<9>(x, group_out, thread_out, k, rf, rp, B); return 0;
+    default: return -1;
+  }
+}
+
+int lurk_host_poseidon_dense(const uint32_t* x, uint32_t* group_out,
+                             uint32_t* thread_out, const uint32_t* k,
+                             int arity, int rf, int rp, long long B) {
+  if (B <= 0 || rf < 2 || rp < 1) return -1;
+  switch (arity) {
+    case 3: dense_batch<4>(x, group_out, thread_out, k, rf, rp, B); return 0;
+    case 4: dense_batch<5>(x, group_out, thread_out, k, rf, rp, B); return 0;
+    case 6: dense_batch<7>(x, group_out, thread_out, k, rf, rp, B); return 0;
+    case 8: dense_batch<9>(x, group_out, thread_out, k, rf, rp, B); return 0;
+    default: return -1;
+  }
+}
 
 // out = (sum_{j<k} a_j b_j) / 2^288 mod p through field.cuh's wide row
 // (mul_wide, wide_add, redc_wide): a and b hold k canonical elements.

@@ -1,8 +1,8 @@
 // Probe of the card's 32-bit integer multiply-add rate, the unit of the
 // kernels' bounds (chip_smoke.py's Bound assumes 64 IMAD per clock per
 // SM). Each thread runs `iters` rounds of kRepeat mad.lo.cc /
-// madc.hi.cc carry chains of 16 instructions, the same instructions as
-// field.cuh's products; many warps per SM keep the pipes fed while each
+// madc.hi.cc carry chains of 16 instructions, the 32-bit multiply-adds
+// the bounds count; many warps per SM keep the pipes fed while each
 // chain waits on its carry, and a round's 64 IMAD leave the loop's
 // counter and branch a small share of the instructions. Not a kernel of
 // any path: chip_smoke.py times it with CUDA events, reads the SM clock

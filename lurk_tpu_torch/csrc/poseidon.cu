@@ -1,30 +1,48 @@
-// Batched Poseidon with the sparse partial-round schedule (opt_spec).
+// Batched Poseidon with the sparse partial-round schedule (opt_spec), K1.
 //
 // Replaces the JAX package's TPU kernel
 // lurk_tpu/poseidon/pallas_nib12_opt.py (build_pallas_nib12_opt_hasher),
 // computing the same Neptune-compatible digests; the plain PyTorch version
 // is lurk_tpu_torch/poseidon/kernel.py:poseidon_hash_plain.
 //
-// Design: one thread per hash, the whole t-element state in registers
-// (8 x 32-bit limbs per element), constants read through the read-only
-// cache (every thread of a warp reads the same word, so each load is a
-// broadcast). Tensor cores are left alone: the TPU kernel's int8 digit
-// planes exist to feed its matrix unit, and Hopper's 32-bit integer
-// multiply-add needs no such split.
+// Bound on this card: 32-bit integer multiply-adds (IMAD). At arity 4 a
+// hash moves 320 B (64 B of limbs per input element read as int32
+// words, 64 B of digest) and needs at least 200,104 IMAD (squarings as
+// squarings, one reduction per mix row; chip_smoke.py's imad_per_hash),
+// some 600 operations per byte; this kernel's thread shape does 201,864.
 //
-// Bound on this card: 32-bit integer multiply-add throughput. At arity 4
-// a hash moves 320 B (64 B of limbs per input element read as int32
-// words, 64 B of digest) but does ~1e3 field products of ~264
-// multiply-adds each (CIOS with 8 limbs: 2 * 64 wide products for a*b,
-// 2 * 64 for m*p, 8 for m), about 1e3 operations per byte. The function
-// needs about a quarter less (squarings as squarings, one reduction per
-// mix row); chip_smoke.py bounds the kernel by that count.
-//
-// The rounds run as one loop whose body holds one S-box per element,
-// one sparse mix and one dense-mix row (the rows staged in shared
-// memory), so the code stays small and nvcc builds it in seconds, not
-// minutes. Arity 8 (t = 9) keeps 72 state registers and may spill;
-// ptxas -v reports it in the build log.
+// What the design does about it (csrc/poseidon_common.cuh):
+// - Arithmetic: the S-box squares twice (fe::sqr, 36 wide products) and
+//   multiplies once; each mix row (the dense rows and each sparse
+//   round's s0' = m00 s0 + sum_j w_j s_j) is summed unreduced and
+//   reduced once (redc_wide), its factors staged times 2^32; the rest of
+//   a sparse round (s_j += v_hat_j s0) is one CIOS product per element.
+//   All constants (54,912 B at t = 9) are staged once per block in
+//   shared memory.
+// - Two shapes, one launcher, chosen by the batch B against
+//   kThreadFrom: below it a group of 8 lanes (16 at t = 9, so that no
+//   lane holds two elements and none carries a second row's latency)
+//   per hash, so a small hydration wave spreads over 8-16x the threads
+//   and a partial round's dependent chain is the S-box, one broadcast
+//   product or one group sum, and one reduction; from it one thread per
+//   hash, which issues the fewest instructions per hash once the batch
+//   fills the card. kThreadFrom = 2^14: on the card (chip_smoke.py phase
+//   0.5, both shapes timed) the group shape was faster up to 2^13 and
+//   the thread shape from 2^14, Poseidon-4 over Pallas and Poseidon-8
+//   over BN256 alike (at 2^13: 0.672 / 0.678 ms and 1.313 / 1.464 ms,
+//   group / thread; at 2^14: 1.351 / 0.692 and 2.567 / 1.470).
+// - ptxas (sm_90a): the group kernel 68, 66, 64 and 70 registers at
+//   t = 4/5/7/9, the thread kernel 86, 112, 142 and 154; 0 bytes of
+//   stack and spills in all eight. SASS (cuobjdump, static count of the
+//   thread kernel at t = 9): 42% IMAD, 46% the adds and selects of the
+//   carries and conditional subtractions.
+// - Measured (chip_smoke.py on an H100 80GB HBM3, 700.00 W power limit):
+//   fib(100)'s four hydration waves (arity 8 x 114, 344, 226 and arity
+//   4 x 123) 0.225-0.237 ms a launch in the group shape, 0.926 ms for
+//   the four; Poseidon-4 over Pallas 3.694 ms at 2^17 and 29.703 ms at
+//   2^20 in the thread shape, 42.2% of the IMAD bound. The thread shape
+//   runs 16 warps an SM (registers and shared memory), too few to hide
+//   its carry chains: the IMAD pipe stays under half busy.
 //
 // Layout: x is int32[arity, 16, B] (16-bit limbs, limb-major, batch
 // last), out is int32[16, B]. k is the constant buffer of
@@ -33,192 +51,176 @@
 // tail[t][t] (pre_sparse) and sparse[RP][2t-1] = m00, w[t-1], v_hat[t-1].
 #include <stdint.h>
 
-#include "field.cuh"
+#include "poseidon_common.cuh"
 
-namespace {
+namespace k1 {
 
-constexpr int kHeaderWords = 24;
-constexpr int kThreads = 128;
+using pos::ld;
 
+// batches of at least this many hashes take one thread per hash
+constexpr long long kThreadFrom = 1 << 14;
+
+// Element offsets (after the header) of the buffer's parts.
+struct Tables {
+  int t, rf, rp;
+  FE_FN int post() const { return t; }
+  FE_FN int mds() const { return t + (rf + rp) * t; }
+  FE_FN int tail() const { return mds() + t * t; }
+  FE_FN int sparse() const { return tail() + t * t; }
+  FE_FN int n_elems() const { return sparse() + rp * (2 * t - 1); }
+  // element e is a mix-row factor (staged times 2^32): the dense
+  // matrices, and m00 and w of each sparse round
+  FE_FN bool scaled(int e) const {
+    if (e < mds()) return false;
+    if (e < sparse()) return true;
+    return (e - sparse()) % (2 * t - 1) < t;
+  }
+  FE_FN bool full(int r) const { return r < rf / 2 || r >= rf / 2 + rp; }
+  // the round whose mix is sparse[0], then sparse[k] in round first + k
+  FE_FN int first_sparse() const { return rf / 2 - 1; }
+  FE_FN bool sparse_round(int r) const {
+    return r >= first_sparse() && r < rf / 2 + rp - 1;
+  }
+  // the dense matrix of a round that is not sparse
+  FE_FN int dense(int r) const {
+    return r == rf / 2 + rp - 1 ? tail() : mds();
+  }
+};
+
+// One thread per hash; scratch word (e, w) of the thread's dense rows at
+// scratch[(e N + w) stride] (shared memory on the card).
 template <int T>
-struct Poseidon {
-  const uint32_t* k;
-  // scratch word (e, w) of this thread's dense-mix output at
-  // scratch[(e * N + w) * stride]: shared memory on the card
+struct Thread {
+  const uint32_t* el;
   uint32_t* scratch;
   int stride;
-  uint32_t p[fe::N];
-  uint32_t pinv;
-  int rf, rp;
+  pos::Field f;
+  Tables tb;
 
-  FE_FN const uint32_t* elem(int e) const {
-    return k + kHeaderWords + fe::N * e;
-  }
-  FE_FN int post_off() const { return T; }
-  FE_FN int mds_off() const { return T + (rf + rp) * T; }
-  FE_FN int tail_off() const { return mds_off() + T * T; }
-  FE_FN int sparse_off() const { return tail_off() + T * T; }
+  FE_FN const uint32_t* elem(int e) const { return el + fe::N * e; }
 
-  FE_FN void sbox(uint32_t x[fe::N]) const {
-    uint32_t x2[fe::N], x4[fe::N];
-    fe::mul(x2, x, x, p, pinv);
-    fe::mul(x4, x2, x2, p, pinv);
-    fe::mul(x, x4, x, p, pinv);
-  }
-
-  // acc += s * (element e), the multiply-accumulate of the mixes
-  FE_FN void mac(uint32_t acc[fe::N], const uint32_t s[fe::N], int e) const {
-    uint32_t c[fe::N], prod[fe::N];
-    fe::load(c, elem(e));
-    fe::mul(prod, s, c, p, pinv);
-    fe::add(acc, acc, prod, p);
-  }
-
-  FE_FN void add_post(uint32_t s[T][fe::N], int r) const {
-    uint32_t c[fe::N];
+  FE_FN void add(uint32_t s[T][fe::N], int off) const {
 #pragma unroll
     for (int i = 0; i < T; ++i) {
-      fe::load(c, elem(post_off() + r * T + i));
-      fe::add(s[i], s[i], c, p);
+      uint32_t c[fe::N];
+      ld(c, elem(off + i));
+      fe::add(s[i], s[i], c, f.p);
     }
-  }
-
-  // s = M s for the dense column-convention matrix at element off. One
-  // output row per iteration, staged in scratch, keeps the code size at
-  // T products instead of T^2.
-  FE_FN void dense(uint32_t s[T][fe::N], int off) const {
-#pragma unroll 1
-    for (int i = 0; i < T; ++i) {
-      uint32_t acc[fe::N] = {0, 0, 0, 0, 0, 0, 0, 0};
-#pragma unroll
-      for (int j = 0; j < T; ++j) mac(acc, s[j], off + i * T + j);
-#pragma unroll
-      for (int w = 0; w < fe::N; ++w)
-        scratch[(i * fe::N + w) * stride] = acc[w];
-    }
-#pragma unroll
-    for (int i = 0; i < T; ++i)
-#pragma unroll
-      for (int w = 0; w < fe::N; ++w)
-        s[i][w] = scratch[(i * fe::N + w) * stride];
   }
 
   // sparse[kk]: s0' = m00 s0 + sum_j w_j s_j; s_j' = s_j + v_hat_j s0
   FE_FN void sparse(uint32_t s[T][fe::N], int kk) const {
-    const int off = sparse_off() + kk * (2 * T - 1);
-    uint32_t s0[fe::N], n0[fe::N] = {0, 0, 0, 0, 0, 0, 0, 0};
-    fe::copy(s0, s[0]);
+    const int off = tb.sparse() + kk * (2 * T - 1);
+    uint32_t n0[fe::N];
+    f.row<T>(n0, elem(off), s);
 #pragma unroll
-    for (int j = 0; j < T; ++j) mac(n0, s[j], off + j);
-#pragma unroll
-    for (int j = 1; j < T; ++j) mac(s[j], s0, off + T + j - 1);
+    for (int j = 1; j < T; ++j) {
+      uint32_t c[fe::N], prod[fe::N];
+      ld(c, elem(off + T + j - 1));
+      fe::mul(prod, s[0], c, f.p, f.pinv);
+      fe::add(s[j], s[j], prod, f.p);
+    }
     fe::copy(s[0], n0);
   }
 
-  // x: limb-major 16-bit limbs of hash b, stride B between limbs.
-  FE_FN void hash(const uint32_t* x, uint32_t* out, long long b,
-                  long long B) const {
-    uint32_t r2[fe::N];
-    fe::load(r2, k + 8);
+  FE_FN void hash(const uint32_t* x, uint32_t* out, long long b, long long B,
+                  const uint32_t r2[fe::N]) const {
     uint32_t s[T][fe::N];
-    // 1. load, pack to 32-bit limbs, to Montgomery form; slot 0 is the
-    //    domain tag, folded into pre[0]
-#pragma unroll
-    for (int w = 0; w < fe::N; ++w) s[0][w] = 0;
-#pragma unroll
-    for (int a = 0; a < T - 1; ++a) {
-      const uint32_t* xa = x + (long long)a * 16 * B + b;
-      uint32_t v[fe::N];
-#pragma unroll
-      for (int w = 0; w < fe::N; ++w)
-        v[w] = xa[(2 * w) * B] | (xa[(2 * w + 1) * B] << 16);
-      fe::to_mont(s[a + 1], v, r2, p, pinv);
-    }
-    // 2. pre_keys
-    {
-      uint32_t c[fe::N];
-#pragma unroll
-      for (int i = 0; i < T; ++i) {
-        fe::load(c, elem(i));
-        fe::add(s[i], s[i], c, p);
-      }
-    }
-    // 3.-7. one round per iteration (the branches are uniform across
-    // the batch): S-box on element 0, and on all elements in full rounds;
-    // then round rf/2-1 and partial rounds 0..rp-2 apply sparse[0..rp-1],
-    // the last partial round the dense pre_sparse tail, the other full
-    // rounds the dense MDS; then post_keys[r].
-    const int rf_half = rf / 2;
+    f.load_inputs<T>(s, x, b, B, r2);
+    add(s, 0);                              // pre_keys, the tag folded in
 #pragma unroll 1
-    for (int r = 0; r < rf + rp; ++r) {
-      sbox(s[0]);
-      if (r < rf_half || r >= rf_half + rp) {
+    for (int r = 0; r < tb.rf + tb.rp; ++r) {
+      f.sbox(s[0]);
+      if (tb.full(r)) {
 #pragma unroll
-        for (int i = 1; i < T; ++i) sbox(s[i]);
+        for (int i = 1; i < T; ++i) f.sbox(s[i]);
       }
-      if (r >= rf_half - 1 && r < rf_half + rp - 1)
-        sparse(s, r - (rf_half - 1));
+      if (tb.sparse_round(r))
+        sparse(s, r - tb.first_sparse());
       else
-        dense(s, r == rf_half + rp - 1 ? tail_off() : mds_off());
-      add_post(s, r);
+        f.mix<T>(s, elem(tb.dense(r)), scratch, stride);
+      add(s, tb.post() + r * T);
     }
-    // 8. digest s[1], out of Montgomery form, canonical, 16-bit limbs
-    uint32_t d[fe::N];
-    fe::from_mont(d, s[1], p, pinv);
-#pragma unroll
-    for (int w = 0; w < fe::N; ++w) {
-      out[(2 * w) * B + b] = d[w] & 0xFFFFu;
-      out[(2 * w + 1) * B + b] = d[w] >> 16;
-    }
+    f.store(out, s[1], b, B);
   }
 };
 
-template <int T>
-FE_FN Poseidon<T> make_poseidon(const uint32_t* k, int rf, int rp,
-                                uint32_t* scratch, int stride) {
-  Poseidon<T> h;
-  h.k = k;
-  h.scratch = scratch;
-  h.stride = stride;
-  fe::load(h.p, k);
-#ifdef __CUDA_ARCH__
-  h.pinv = __ldg(k + 16);
-#else
-  h.pinv = k[16];
-#endif
-  h.rf = rf;
-  h.rp = rp;
-  return h;
-}
+// A group of lanes per hash (poseidon_common.cuh's Group).
+template <int T, class Lanes>
+struct Group {
+  static constexpr int L = Lanes::L;
+  const uint32_t* el;
+  pos::Group<T, Lanes> g;
+  Tables tb;
 
-}  // namespace
+  FE_FN const uint32_t* elem(int e) const { return el + fe::N * e; }
+
+  // sparse[kk]: each lane's term of s0' summed by the group and reduced
+  // (kept by lane 0) while lane j >= 1 adds v_hat_j s0
+  FE_FN void sparse(uint32_t s[L][fe::N], int kk) const {
+    const int off = tb.sparse() + kk * (2 * T - 1);
+    uint32_t acc[L][fe::W], s0[L][fe::N];
+#pragma unroll
+    for (int ln = 0; ln < L; ++ln) {
+      const int e = Lanes::lane(ln);
+      fe::wide_zero(acc[ln]);
+      if (e < T) {
+        uint32_t c[fe::N];
+        ld(c, elem(off + e));
+        fe::wide_mac(acc[ln], c, s[ln]);
+      }
+    }
+    Lanes::bcast(s0, s, 0);
+    Lanes::sum(acc);
+#pragma unroll
+    for (int ln = 0; ln < L; ++ln) {
+      const int e = Lanes::lane(ln);
+      uint32_t n0[fe::N], c[fe::N], v[fe::N];
+      fe::redc_wide(n0, acc[ln], g.f.p, g.f.pinv);
+      ld(c, elem(off + T + (e >= 1 && e < T ? e - 1 : 0)));
+      fe::mul(v, s0[ln], c, g.f.p, g.f.pinv);
+      fe::add(v, s[ln], v, g.f.p);
+#pragma unroll
+      for (int w = 0; w < fe::N; ++w)
+        s[ln][w] = e == 0 ? n0[w] : (e < T ? v[w] : s[ln][w]);
+    }
+  }
+
+  FE_FN void hash(const uint32_t* x, uint32_t* out, long long b, long long B,
+                  const uint32_t r2[fe::N], bool store) const {
+    uint32_t s[L][fe::N];
+    g.load_inputs(s, x, b, B, r2);
+    g.add(s, elem(0));                      // pre_keys
+#pragma unroll 1
+    for (int r = 0; r < tb.rf + tb.rp; ++r) {
+      g.sbox(s, tb.full(r));
+      if (tb.sparse_round(r))
+        sparse(s, r - tb.first_sparse());
+      else
+        g.mix(s, elem(tb.dense(r)));
+      g.add(s, elem(tb.post() + r * T));
+    }
+    g.store(out, s, b, B, store);
+  }
+};
+
+}  // namespace k1
 
 #ifdef __CUDACC__
 
-#include <cuda_runtime.h>
+namespace k1 {
 
 template <int T>
-__global__ void __launch_bounds__(kThreads)
-poseidon_sparse_kernel(const uint32_t* __restrict__ x,
-                       uint32_t* __restrict__ out,
-                       const uint32_t* __restrict__ k, int rf, int rp,
-                       long long B) {
-  __shared__ uint32_t scratch[T * fe::N * kThreads];
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  make_poseidon<T>(k, rf, rp, scratch + threadIdx.x, kThreads)
-      .hash(x, out, b, B);
+int launch(const uint32_t* x, uint32_t* out, const uint32_t* k, int rf,
+           int rp, long long B, cudaStream_t stream) {
+  return pos::launch<T, Tables, Thread, Group>(x, out, k, rf, rp, B,
+                                             kThreadFrom, stream);
 }
 
-template <int T>
-static void launch(const uint32_t* x, uint32_t* out, const uint32_t* k,
-                   int rf, int rp, long long B, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
-  poseidon_sparse_kernel<T><<<blocks, kThreads, 0, stream>>>(x, out, k, rf,
-                                                             rp, B);
-}
+}  // namespace k1
 
-// Hash B preimages of the given arity; returns cudaGetLastError().
+// Hash B preimages of the given arity; returns a CUDA error code (0 on
+// success).
 extern "C" int lurk_poseidon_sparse(const void* x, void* out,
                                     const void* consts, int arity, int rf,
                                     int rp, long long B, void* stream) {
@@ -228,13 +230,17 @@ extern "C" int lurk_poseidon_sparse(const void* x, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || rf < 2 || rp < 1) return (int)cudaErrorInvalidValue;
   switch (arity) {
-    case 3: launch<4>(xi, o, k, rf, rp, B, s); break;
-    case 4: launch<5>(xi, o, k, rf, rp, B, s); break;
-    case 6: launch<7>(xi, o, k, rf, rp, B, s); break;
-    case 8: launch<9>(xi, o, k, rf, rp, B, s); break;
+    case 3: return k1::launch<4>(xi, o, k, rf, rp, B, s);
+    case 4: return k1::launch<5>(xi, o, k, rf, rp, B, s);
+    case 6: return k1::launch<7>(xi, o, k, rf, rp, B, s);
+    case 8: return k1::launch<9>(xi, o, k, rf, rp, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+}
+
+// The batch from which lurk_poseidon_sparse takes one thread per hash.
+extern "C" long long lurk_poseidon_sparse_thread_from() {
+  return k1::kThreadFrom;
 }
 
 #endif  // __CUDACC__

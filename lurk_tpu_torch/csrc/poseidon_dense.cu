@@ -10,19 +10,41 @@
 // PyTorch version is lurk_tpu_torch/poseidon/kernel.py:
 // poseidon_hash_dense_plain; the host oracle is poseidon/host.py.
 //
-// Bound on this card: 32-bit integer multiply-adds. A dense arity-4 hash
-// does 96 S-boxes and 64 rounds x 5 MDS rows of 5 products, about
-// 3.1e5 multiply-adds for 320 bytes of input and output: some 1e3
-// operations per byte, far past the card's balance point.
+// Bound on this card: 32-bit integer multiply-adds (IMAD). The digest
+// needs at least 200,104 IMAD per arity-4 hash (chip_smoke.py's
+// imad_per_hash, the sparse schedule's count) for 320 bytes of input and
+// output; the dense schedule itself needs 314,792 (64 rounds of 5 MDS
+// rows of 5 products, each row reduced once; this kernel's thread shape
+// does 320,360), so this kernel can reach at most 63.6% of the digest's
+// bound.
 //
-// What the design does about it: one thread per hash with the t-element
-// state in registers (8 x 32-bit limbs each, field.cuh's CIOS), nothing
-// but the inputs and the digest in device memory. The round constants
-// and the MDS ((RF+RP) t + t^2 elements, at most 21 KB at t = 9) are
-// staged once per block in shared memory, where every thread of a warp
-// reads the same word (a broadcast). The round loop stays rolled and the
-// MDS runs one output row per iteration, staged in shared memory, so the
-// code holds t products per mix and nvcc builds it in seconds.
+// What the design does about it (csrc/poseidon_common.cuh):
+// - Arithmetic: the S-box squares twice (fe::sqr) and multiplies once;
+//   each MDS row is summed unreduced and reduced once (redc_wide), the
+//   MDS staged times 2^32. The round constants and the MDS
+//   ((RF+RP) t + t^2 elements, at most 21 KB at t = 9) are staged once
+//   per block in shared memory.
+// - Two shapes, one launcher, chosen by the batch B against
+//   kThreadFrom: below it a group of 8 lanes (16 at t = 9) per hash,
+//   lane j forming MDS row j over the broadcast elements, so a small
+//   shard spreads over 8-16x the threads and a partial round's
+//   dependent chain is the S-box, one product and one reduction; from
+//   it one thread per hash, which issues the fewest instructions per
+//   hash once the batch fills the card. kThreadFrom = 2^14: on the card
+//   (chip_smoke.py phase 0.5) the group shape was faster up to 2^13 and
+//   the thread shape from 2^14, Poseidon-4 over Pallas and Poseidon-8
+//   over BN256 alike (at 2^13: 0.698 / 0.916 ms and 1.821 / 2.741 ms,
+//   group / thread; at 2^14: 1.352 / 0.919 and 3.570 / 2.759).
+// - ptxas (sm_90a): the group kernel 64, 56, 66 and 56 registers at
+//   t = 4/5/7/9, the thread kernel 90, 114, 136 and 156; 0 bytes of
+//   stack and spills in all eight. SASS (cuobjdump, static count of the
+//   thread kernel at t = 9): 42% IMAD, 46% adds and selects.
+// - Measured (chip_smoke.py on an H100 80GB HBM3, 700.00 W power limit):
+//   fib(100)'s sharded hydration (shards of 64, 256, 64 and 128) 0.258-
+//   0.362 ms a launch in the group shape, 2.677 ms for its eight;
+//   Poseidon-4 over Pallas 5.691 ms at 2^17 and 44.032 ms at 2^20 in
+//   the thread shape, 28.5% of the digest's bound (45% of the dense
+//   schedule's own).
 //
 // Layout: x is int32[arity, 16, B] (16-bit limbs, limb-major, batch
 // last), out is int32[16, B]. k is the buffer of kernel.py:
@@ -32,166 +54,98 @@
 // M[i][j] over i (out[j] = sum_i M[i][j] s[i], neptune's orientation).
 #include <stdint.h>
 
-#include "field.cuh"
+#include "poseidon_common.cuh"
 
-namespace {
+namespace k2 {
 
-constexpr int kHeaderWords = 24;
-constexpr int kThreads = 128;
+using pos::ld;
 
-FE_FN void ld(uint32_t r[fe::N], const uint32_t* src) {
-#pragma unroll
-  for (int i = 0; i < fe::N; ++i) r[i] = src[i];
-}
+// batches of at least this many hashes take one thread per hash
+constexpr long long kThreadFrom = 1 << 14;
 
+// Element offsets (after the header) of the buffer's parts.
+struct Tables {
+  int t, rf, rp;
+  FE_FN int mds() const { return (rf + rp) * t; }
+  FE_FN int n_elems() const { return mds() + t * t; }
+  FE_FN bool scaled(int e) const { return e >= mds(); }
+  FE_FN bool full(int r) const { return r < rf / 2 || r >= rf / 2 + rp; }
+};
+
+// One thread per hash; scratch as k1::Thread's.
 template <int T>
-struct DensePoseidon {
-  const uint32_t* elems;   // rc then mds, Montgomery; shared memory
-  // scratch word (e, w) of this thread's mix output at
-  // scratch[(e * N + w) * stride]: shared memory on the card
+struct Thread {
+  const uint32_t* el;
   uint32_t* scratch;
   int stride;
-  uint32_t p[fe::N];
-  uint32_t pinv;
-  int rf, rp;
+  pos::Field f;
+  Tables tb;
 
-  FE_FN const uint32_t* elem(int e) const { return elems + fe::N * e; }
-  FE_FN int mds_off() const { return (rf + rp) * T; }
+  FE_FN const uint32_t* elem(int e) const { return el + fe::N * e; }
 
-  FE_FN void sbox(uint32_t x[fe::N]) const {
-    uint32_t x2[fe::N], x4[fe::N];
-    fe::mul(x2, x, x, p, pinv);
-    fe::mul(x4, x2, x2, p, pinv);
-    fe::mul(x, x4, x, p, pinv);
-  }
-
-  // s = M s: one output row per iteration, staged in scratch
-  FE_FN void mix(uint32_t s[T][fe::N]) const {
-#pragma unroll 1
-    for (int j = 0; j < T; ++j) {
-      uint32_t acc[fe::N] = {0, 0, 0, 0, 0, 0, 0, 0};
-#pragma unroll
-      for (int i = 0; i < T; ++i) {
-        uint32_t c[fe::N], prod[fe::N];
-        ld(c, elem(mds_off() + j * T + i));
-        fe::mul(prod, s[i], c, p, pinv);
-        fe::add(acc, acc, prod, p);
-      }
-#pragma unroll
-      for (int w = 0; w < fe::N; ++w)
-        scratch[(j * fe::N + w) * stride] = acc[w];
-    }
-#pragma unroll
-    for (int j = 0; j < T; ++j)
-#pragma unroll
-      for (int w = 0; w < fe::N; ++w)
-        s[j][w] = scratch[(j * fe::N + w) * stride];
-  }
-
-  // x: limb-major 16-bit limbs of hash b, stride B between limbs; r2 is
-  // R^2 mod p.
   FE_FN void hash(const uint32_t* x, uint32_t* out, long long b, long long B,
                   const uint32_t r2[fe::N]) const {
     uint32_t s[T][fe::N];
-#pragma unroll
-    for (int w = 0; w < fe::N; ++w) s[0][w] = 0;
-#pragma unroll
-    for (int a = 0; a < T - 1; ++a) {
-      const uint32_t* xa = x + (long long)a * 16 * B + b;
-      uint32_t v[fe::N];
-#pragma unroll
-      for (int w = 0; w < fe::N; ++w)
-        v[w] = xa[(2 * w) * B] | (xa[(2 * w + 1) * B] << 16);
-      fe::to_mont(s[a + 1], v, r2, p, pinv);
-    }
+    f.load_inputs<T>(s, x, b, B, r2);
     // round r: constants into every element, S-box on every element in
     // full rounds and on element 0 in partial rounds, then the MDS
-    const int rf_half = rf / 2;
 #pragma unroll 1
-    for (int r = 0; r < rf + rp; ++r) {
+    for (int r = 0; r < tb.rf + tb.rp; ++r) {
 #pragma unroll
       for (int i = 0; i < T; ++i) {
         uint32_t c[fe::N];
         ld(c, elem(r * T + i));
-        fe::add(s[i], s[i], c, p);
+        fe::add(s[i], s[i], c, f.p);
       }
-      sbox(s[0]);
-      if (r < rf_half || r >= rf_half + rp) {
+      f.sbox(s[0]);
+      if (tb.full(r)) {
 #pragma unroll
-        for (int i = 1; i < T; ++i) sbox(s[i]);
+        for (int i = 1; i < T; ++i) f.sbox(s[i]);
       }
-      mix(s);
+      f.mix<T>(s, elem(tb.mds()), scratch, stride);
     }
-    uint32_t d[fe::N];
-    fe::from_mont(d, s[1], p, pinv);
-#pragma unroll
-    for (int w = 0; w < fe::N; ++w) {
-      out[(2 * w) * B + b] = d[w] & 0xFFFFu;
-      out[(2 * w + 1) * B + b] = d[w] >> 16;
-    }
+    f.store(out, s[1], b, B);
   }
 };
 
-template <int T>
-FE_FN DensePoseidon<T> make_dense(const uint32_t* header,
-                                  const uint32_t* elems, int rf, int rp,
-                                  uint32_t* scratch, int stride) {
-  DensePoseidon<T> h;
-  h.elems = elems;
-  h.scratch = scratch;
-  h.stride = stride;
-  ld(h.p, header);
-  h.pinv = header[16];
-  h.rf = rf;
-  h.rp = rp;
-  return h;
-}
+// A group of lanes per hash (poseidon_common.cuh's Group).
+template <int T, class Lanes>
+struct Group {
+  static constexpr int L = Lanes::L;
+  const uint32_t* el;
+  pos::Group<T, Lanes> g;
+  Tables tb;
 
-// Elements (after the header) of the buffer for width t.
-FE_FN int dense_elems(int t, int rf, int rp) { return (rf + rp) * t + t * t; }
+  FE_FN const uint32_t* elem(int e) const { return el + fe::N * e; }
 
-}  // namespace
+  FE_FN void hash(const uint32_t* x, uint32_t* out, long long b, long long B,
+                  const uint32_t r2[fe::N], bool store) const {
+    uint32_t s[L][fe::N];
+    g.load_inputs(s, x, b, B, r2);
+#pragma unroll 1
+    for (int r = 0; r < tb.rf + tb.rp; ++r) {
+      g.add(s, elem(r * T));
+      g.sbox(s, tb.full(r));
+      g.mix(s, elem(tb.mds()));
+    }
+    g.store(out, s, b, B, store);
+  }
+};
+
+}  // namespace k2
 
 #ifdef __CUDACC__
 
-#include <cuda_runtime.h>
+namespace k2 {
 
 template <int T>
-__global__ void __launch_bounds__(kThreads)
-poseidon_dense_kernel(const uint32_t* __restrict__ x,
-                      uint32_t* __restrict__ out,
-                      const uint32_t* __restrict__ k, int rf, int rp,
-                      long long B) {
-  extern __shared__ uint32_t smem[];
-  const int n_words = fe::N * dense_elems(T, rf, rp);
-  uint32_t* elems = smem;
-  uint32_t* scratch = smem + n_words;
-  for (int i = threadIdx.x; i < n_words; i += blockDim.x)
-    elems[i] = __ldg(k + kHeaderWords + i);
-  __syncthreads();
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  uint32_t header[kHeaderWords];
-#pragma unroll
-  for (int i = 0; i < kHeaderWords; ++i) header[i] = __ldg(k + i);
-  make_dense<T>(header, elems, rf, rp, scratch + threadIdx.x, kThreads)
-      .hash(x, out, b, B, header + 8);
+int launch(const uint32_t* x, uint32_t* out, const uint32_t* k, int rf,
+           int rp, long long B, cudaStream_t stream) {
+  return pos::launch<T, Tables, Thread, Group>(x, out, k, rf, rp, B,
+                                             kThreadFrom, stream);
 }
 
-template <int T>
-static int launch(const uint32_t* x, uint32_t* out, const uint32_t* k,
-                  int rf, int rp, long long B, cudaStream_t stream) {
-  const size_t smem = sizeof(uint32_t) *
-      (fe::N * dense_elems(T, rf, rp) + T * fe::N * kThreads);
-  cudaError_t err = cudaFuncSetAttribute(
-      poseidon_dense_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
-  poseidon_dense_kernel<T><<<blocks, kThreads, smem, stream>>>(x, out, k, rf,
-                                                              rp, B);
-  return (int)cudaGetLastError();
-}
+}  // namespace k2
 
 // Hash B preimages of the given arity; returns a CUDA error code (0 on
 // success).
@@ -204,12 +158,17 @@ extern "C" int lurk_poseidon_dense(const void* x, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || rf < 2 || rp < 1) return (int)cudaErrorInvalidValue;
   switch (arity) {
-    case 3: return launch<4>(xi, o, k, rf, rp, B, s);
-    case 4: return launch<5>(xi, o, k, rf, rp, B, s);
-    case 6: return launch<7>(xi, o, k, rf, rp, B, s);
-    case 8: return launch<9>(xi, o, k, rf, rp, B, s);
+    case 3: return k2::launch<4>(xi, o, k, rf, rp, B, s);
+    case 4: return k2::launch<5>(xi, o, k, rf, rp, B, s);
+    case 6: return k2::launch<7>(xi, o, k, rf, rp, B, s);
+    case 8: return k2::launch<9>(xi, o, k, rf, rp, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The batch from which lurk_poseidon_dense takes one thread per hash.
+extern "C" long long lurk_poseidon_dense_thread_from() {
+  return k2::kThreadFrom;
 }
 
 #endif  // __CUDACC__

@@ -6,8 +6,9 @@ Counterpart of the JAX package's ``poseidon/pallas_nib12_opt.py``
 
 :func:`poseidon_hash` takes ``int32[arity, 16, B]`` canonical 16-bit
 limbs and returns the digests as ``int32[16, B]``, the JAX builders'
-layout. On a CUDA tensor it launches ``csrc/poseidon.cu`` (one thread
-per hash, the state in registers); on a CPU tensor it runs
+layout. On a CUDA tensor it launches ``csrc/poseidon.cu`` (a lane group
+per hash for small batches, one thread per hash from
+:func:`thread_from`'s batch); on a CPU tensor it runs
 :func:`poseidon_hash_plain`, the same schedule on :mod:`..ops.field`.
 Both read one constant buffer: by default the one cached per (field,
 arity, device) by :func:`constants`, or one the caller passes as
@@ -628,6 +629,18 @@ def _entry(name: str) -> Callable:
         fn.restype = i
         _FNS[name] = fn
     return fn
+
+
+def thread_from(name: str) -> int:
+    """The batch from which kernel ``name`` (``"poseidon"`` or
+    ``"poseidon_dense"``) runs one thread per hash; smaller batches run
+    a lane group per hash. A constant of the kernel's source, read from
+    its library (built at first use)."""
+    from .. import native
+    fn = getattr(native.load(name), _ENTRY[name] + "_thread_from")
+    fn.argtypes = []
+    fn.restype = ctypes.c_longlong
+    return int(fn())
 
 
 def _launch(name: str, arity: int, rf: int, rp: int, x: torch.Tensor,

@@ -36,6 +36,7 @@ from lurk_tpu_torch.poseidon.circuit import (
 from lurk_tpu_torch.r1cs.cs import ConstraintSystem, Shape
 from lurk_tpu_torch.r1cs.gadgets import alloc_num
 from lurk_tpu_torch.store.core import Store
+from test_torch_field import one_torch_thread  # noqa: F401
 
 # two of tests/test_circuit.py's expressions: arithmetic, and a closure
 EXPRS = ["(+ 1 2)", "((lambda (x) (* x x)) 5)"]

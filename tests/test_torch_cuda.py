@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions on the card:
-K1 (sparse Poseidon), K2 (dense Poseidon), K6 (MSM), the sharded prover
-layer over [cuda:0, cuda:0], and the folded Poseidon (K3b/K4b's
-counterpart) with the bench's Poseidon figures through each schedule.
+K1 (sparse Poseidon) and K2 (dense Poseidon) in both shapes (a lane
+group per hash below their kThreadFrom batch, one thread per hash from
+it), K6 (MSM), the sharded prover layer over [cuda:0, cuda:0], and the
+folded Poseidon (K3b/K4b's counterpart) with the bench's Poseidon
+figures through each schedule.
 
 Needs a CUDA card and nvcc; every case skips without a card. Imports
 nothing of the JAX package, so it runs where jax is not installed:
@@ -20,6 +22,7 @@ from lurk_tpu_torch.ops import field as F
 from lurk_tpu_torch.parallel import sharding
 from lurk_tpu_torch.poseidon import kernel as K
 from lurk_tpu_torch.poseidon.host import hash_preimage
+from test_torch_field import one_torch_thread  # noqa: F401
 
 CASES = [(name, arity) for name in sorted(FIELDS) for arity in (3, 4, 6, 8)]
 CURVE_BY_NAME = {c.name: c for c in CURVE_FOR_FIELD.values()}
@@ -69,6 +72,64 @@ def test_poseidon_kernel_rejects_strided_input(card):
     x = torch.zeros((4, 16, 8), dtype=torch.int32, device=card)[..., ::2]
     with pytest.raises(ValueError):
         K.poseidon_hash(BN256_SCALAR, 4, x)
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2 in both shapes, reached through the wrappers by the batch
+# ---------------------------------------------------------------------------
+
+
+SHAPED = {"sparse": ("poseidon", K.poseidon_hash, K.poseidon_hash_plain,
+                     "launches"),
+          "dense": ("poseidon_dense", K.poseidon_hash_dense,
+                    K.poseidon_hash_dense_plain, "dense_launches")}
+# batches: the main path's waves and shards, and each side of kThreadFrom
+SIZES = ["1", "64", "114", "256", "344", "below", "from"]
+
+
+def _batch(name: str, size: str) -> int:
+    n = K.thread_from(name)
+    return {"below": n - 1, "from": n}.get(size) or int(size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("arity", [4, 8])
+@pytest.mark.parametrize("kernel", sorted(SHAPED))
+def test_shapes_match_plain(card, kernel, arity, size):
+    name, hash_fn, plain_fn, counter = SHAPED[kernel]
+    b = _batch(name, size)
+    field = BN256_SCALAR
+    rng = np.random.default_rng(b + arity)
+    limbs = rng.integers(0, 1 << 16, size=(arity, 16, b), dtype=np.int32)
+    limbs[:, 15, :] %= field.modulus >> 240
+    x = torch.from_numpy(limbs).to(card)
+    before = getattr(K, counter)
+    got = hash_fn(field, arity, x)
+    assert getattr(K, counter) == before + 1
+    assert torch.equal(got, plain_fn(field, arity, x))
+    lanes = sorted({0, b - 1})
+    pres = [F.limbs_to_ints(limbs[:, :, j]) for j in lanes]
+    assert F.limbs_to_ints(got[:, lanes].cpu().numpy().T) == \
+        [hash_preimage(field, pre) for pre in pres]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(SHAPED))
+@pytest.mark.parametrize("name,arity", CASES)
+def test_shapes_on_p_minus_1(card, kernel, name, arity):
+    """Every input p - 1, in both shapes."""
+    kname, hash_fn, plain_fn, _ = SHAPED[kernel]
+    field = FIELDS[name]
+    want = hash_preimage(field, [field.modulus - 1] * arity)
+    for b in (37, K.thread_from(kname)):
+        limbs = np.repeat(np.array(F.int_to_limbs(field.modulus - 1),
+                                   dtype=np.int32)[None, :, None], arity,
+                          axis=0)
+        x = torch.from_numpy(np.repeat(limbs, b, axis=2)).to(card)
+        got = hash_fn(field, arity, x)
+        assert torch.equal(got, plain_fn(field, arity, x))
+        assert set(F.limbs_to_ints(got.cpu().numpy().T)) == {want}
 
 
 # ---------------------------------------------------------------------------

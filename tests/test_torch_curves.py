@@ -16,6 +16,7 @@ from lurk_tpu.proof import hyperkzg as jax_hyperkzg
 from lurk_tpu.proof.params_cache import _gens_to_bytes as jax_gens_to_bytes
 from lurk_tpu_torch.curves import weierstrass as W
 from lurk_tpu_torch.proof import hyperkzg, params_cache
+from test_torch_field import one_torch_thread  # noqa: F401
 
 NAMES = ["PALLAS", "VESTA", "BN254_G1", "GRUMPKIN"]
 

@@ -16,6 +16,7 @@ from lurk_tpu_torch.parser import read_with_default_state
 from lurk_tpu_torch.store.core import Store
 from lurk_tpu_torch.tags import ContTag
 
+from test_torch_field import one_torch_thread  # noqa: F401
 from test_torch_store import record_batches
 
 

@@ -3,11 +3,23 @@ against Python integers, for the four Lurk fields. Exact: tolerance 0."""
 
 import numpy as np
 import pytest
+import torch
 
 from lurk_tpu_torch.fields import FIELDS
 from lurk_tpu_torch.ops import field as F
 
 R = 1 << 256
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for a port test module: the plain
+    versions run many small ops, where a pool as wide as the machine,
+    shared by several test workers, costs more than it gives. Every
+    test_torch_*.py file imports this fixture."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def operands(p: int, seed: int):

@@ -8,6 +8,7 @@ import subprocess
 import sys
 
 import pytest
+from test_torch_field import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "lurk_tpu_torch"

@@ -21,20 +21,11 @@ from lurk_tpu.proof.nova import CommitmentKey as JaxCommitmentKey
 from lurk_tpu_torch.curves import weierstrass as W
 from lurk_tpu_torch.msm import kernel as M
 from lurk_tpu_torch.proof import nova, params_cache
+from test_torch_field import one_torch_thread  # noqa: F401
 
 CURVES = {"bn254-g1": (W.BN254_G1, JW.BN254_G1),
           "grumpkin": (W.GRUMPKIN, JW.GRUMPKIN),
           "pallas": (W.PALLAS, JW.PALLAS)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The plain versions run on small tensors, where torch's intra-op
-    threads cost more than they give."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(autouse=True)

@@ -25,6 +25,7 @@ from lurk_tpu_torch.proof.multiframe import (
     MultiFrame, chunk_frames, io_chain_checker,
 )
 from lurk_tpu_torch.store.core import Store
+from test_torch_field import one_torch_thread  # noqa: F401
 
 RC = 5
 # tests/test_witness_only.py's first two programs; the factorial's 66

@@ -8,6 +8,7 @@ import stat
 import pytest
 
 from lurk_tpu_torch import native
+from test_torch_field import one_torch_thread  # noqa: F401
 
 
 def _fake_nvcc(tmp_path, body: str) -> str:

@@ -34,6 +34,7 @@ from lurk_tpu_torch.poseidon import kernel as K
 from lurk_tpu_torch.poseidon.partial_opt import (
     partial_schedule, run_partial_span_host,
 )
+from test_torch_field import one_torch_thread  # noqa: F401
 
 CASES = [(name, arity) for name in sorted(FIELDS) for arity in (3, 4, 6, 8)]
 TRIE_ROOTS = [

@@ -25,18 +25,9 @@ from lurk_tpu_torch.parser import read_with_default_state
 from lurk_tpu_torch.poseidon import kernel as K
 from lurk_tpu_torch.proof.nova import CommitmentKey
 from lurk_tpu_torch.store.core import Store
+from test_torch_field import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The plain versions run on small tensors, where torch's intra-op
-    threads cost more than they give."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture

@@ -15,6 +15,7 @@ from lurk_tpu_torch.poseidon import kernel as K
 from lurk_tpu_torch.store import core
 from lurk_tpu_torch.store.core import Store
 from lurk_tpu_torch.symbol import user_sym
+from test_torch_field import one_torch_thread  # noqa: F401
 
 PROGRAMS = [
     "(lambda (x) x)",
