@@ -58,11 +58,18 @@ Phases, each fatal on failure:
   7. the step circuit: the blank frame's 11,057 constraints and 9,029
      aux, frame 0 of fib(100) fully synthesized with every constraint
      checked, witness-only equal to full synthesis on the first 5 frames
-     at rc = 5; then the main path from phase 2's hydrated fib(100):
-     MultiFrame.from_frames(rc=100) -> 8 witness-only step instances ->
-     each step's W committed with phase 4's 2^21 BN254 key through K6;
-     each W's kernel timed alone (CUDA events) with its bound and longest
-     bucket run, step 0's against the plain version on the card.
+     at rc = 5;
+  8. the fold, the main path from phase 2's hydrated fib(100):
+     NovaProver(rc=100, cuda).prove_from_frames -> the shape from step
+     0's full synthesis (its build timed) -> 8 steps of witness-only
+     synthesis, W packed once and committed through K6, the cross-term
+     T on the host C++ and committed through K6, the fold (16 MSM
+     launches, no Poseidon launch) -> NovaProver.verify (W and E
+     recommitted: 2 launches) accepts, and rejects the proof with one
+     entry of its final W changed; each step's phase times (host
+     clock), then each commit's kernel timed alone (CUDA events) with
+     its bound; step 0's W and T (all zero: it folds into the zero
+     accumulator) and step 1's T against the plain version on the card.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -140,7 +147,7 @@ FOLDED_CHUNK = 1 << 17         # lanes per plain folded call at 2^20
 SKEW_N = 1 << 20               # K6's three skewed vectors
 SKEW_CHECK_N = 1 << 16         # ... and their size against the plain MSM
 W_LIKE_VALUES = 50_000         # fib(100)'s W: 49,161 distinct values
-W_TIMED = 3                    # timed launches per W commit
+W_TIMED = 3                    # timed launches per commit of the fold
 BENCH_TIMEOUT_S = 300
 STEP_RC = 100                  # fib(100)'s 800 frames in 8 folding steps
 CHECK_RC = 5
@@ -611,19 +618,9 @@ def phase4(bound, dev, devices):
     check(gpoint == M.to_affine(GRUMPKIN, M.msm_plain(
         GRUMPKIN, gkey.table().rows, gw)),
         "Grumpkin 2^16 commit differs from the plain version")
-    # the 2^20 commit against the plain version on the card, over lane
-    # chunks (its temporaries take some 70 KB a lane) whose partial
-    # points are summed on the host
+    # the 2^20 commit against the plain version on the card
     n20 = COMMITS[0]
-    w20 = words_on(table, vecs[n20])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plain20 = None
-    for lo in range(0, n20, PLAIN_CHUNK):
-        part = M.msm_plain(BN254_G1, table.rows[lo:lo + PLAIN_CHUNK],
-                           w20[lo:lo + PLAIN_CHUNK])
-        plain20 = BN254_G1.add(plain20, M.to_affine(BN254_G1, part))
-    plain_ms = 1e3 * (time.perf_counter() - t0)
+    plain20, plain_ms = plain_commit(BN254_G1, table, vecs[n20])
     max_err = max(max_err, point_err(commits[n20], plain20))
     check(commits[n20] == plain20,
           "BN254 2^20 commit differs from the plain version")
@@ -677,7 +674,7 @@ def phase4(bound, dev, devices):
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "operations" if "operations" in bound_by
-            else "bytes", "library_ms": None}, key
+            else "bytes", "library_ms": None}
 
 
 def phase5(bound, gen, dev, host, devices):
@@ -920,16 +917,14 @@ def folded_held(x: torch.Tensor) -> int:
     return err
 
 
-def phase7(bound, store, frames, key) -> dict:
-    """The step circuit and the main path's witnesses and commitments;
-    returns the W commits' K6 figures for the kernels line."""
+def phase7(store, frames) -> None:
+    """The step circuit: the blank frame's counts, frame 0 checked, and
+    witness-only synthesis against full synthesis."""
     from lurk_tpu_torch.fields import BN256_SCALAR
     from lurk_tpu_torch.lem.circuit import synthesize_frame
     from lurk_tpu_torch.lem.eval_step import eval_step
     from lurk_tpu_torch.lem.interpreter import Frame
-    from lurk_tpu_torch.msm import kernel as M
-    from lurk_tpu_torch.poseidon import kernel as K
-    from lurk_tpu_torch.proof.multiframe import MultiFrame, io_chain_checker
+    from lurk_tpu_torch.proof.multiframe import MultiFrame
     from lurk_tpu_torch.r1cs.cs import ConstraintSystem
 
     step = eval_step()
@@ -949,90 +944,158 @@ def phase7(bound, store, frames, key) -> dict:
     x_wo, w_wo, _ = mf5.instance(step, store, witness_only=True)
     check(x_wo == x_full and w_wo == w_full,
           "witness-only differs from full synthesis on frames 0-4")
-    print(f"phase 7.1: blank step circuit {blank.num_constraints} "
+    print(f"phase 7: blank step circuit {blank.num_constraints} "
           f"constraints, {blank.num_aux} aux; frame 0 satisfied with the "
           f"blank's shape; witness-only = full synthesis on frames 0-4 at "
           f"rc={CHECK_RC} ({len(w_full)} aux) "
           f"({time.perf_counter() - t0:.1f} s)")
 
-    # the main path: step witnesses of fib(100), each W committed
-    K.launches = M.launches = K.dense_launches = K.folded_launches = 0
-    t0 = time.perf_counter()
-    steps = MultiFrame.from_frames(frames, STEP_RC, step, store)
-    xs, w_s, c_s, sizes, points, packed = [], [], [], set(), [], []
-    for mf in steps:
-        t1 = time.perf_counter()
-        x, w, _ = mf.instance(step, store, witness_only=True)
-        t2 = time.perf_counter()
-        point = key.commit(w)
-        c_s.append(time.perf_counter() - t2)
-        w_s.append(t2 - t1)
-        t_pack = time.perf_counter()
-        packed.append(M.pack_scalar_words(w, key.curve.order))
-        t0 += time.perf_counter() - t_pack       # not the path's time
-        points.append(point)
-        check(point is not None and key.curve.is_on_curve(point),
-              "a commitment of W is not a curve point")
-        check(all(0 <= v < BN256_SCALAR.modulus for v in w),
-              "W holds a value outside the field")
-        xs.append(x)
-        sizes.add(len(w))
-    t_all = time.perf_counter() - t0
-    poseidon = (K.launches, K.dense_launches, K.folded_launches)
-    check(len(steps) == len(frames) // STEP_RC == 8,
-          f"{len(steps)} folding steps, expected 8")
-    check(M.launches == len(steps), f"{M.launches} MSM launches for "
-          f"{len(steps)} commits of W")
-    check(poseidon == (0, 0, 0), f"Poseidon launches {poseidon} while "
-          "synthesizing witnesses (the store was hydrated in phase 2)")
-    check(len(sizes) == 1, f"W sizes differ across steps: {sorted(sizes)}")
-    check(io_chain_checker(xs[0][:6], xs[-1][6:])(xs),
-          "step inputs and outputs do not chain")
-    print(f"phase 7.2: fib(100) -> MultiFrame.from_frames(rc={STEP_RC}): "
-          f"{len(steps)} steps, W of {sizes.pop()} entries each; witness "
-          f"(witness-only, host C++ trace) {statistics_line(w_s)} s per "
-          f"step; commit of W (2^{key.table().n.bit_length() - 1}-point "
-          f"BN254 key, K6) {statistics_line(c_s)} s per step; "
-          f"{M.launches} MSM launches; {t_all:.1f} s in all")
 
-    # each W commit's kernel alone (the launch the commit made: W's rows)
+def plain_commit(curve, table, words: np.ndarray):
+    """The plain MSM of reduced scalar words against the table's first
+    rows, over lane chunks of PLAIN_CHUNK (its temporaries take some 70
+    KB a lane) whose partial points are summed on the host; returns
+    (affine point, host-clock ms)."""
+    from lurk_tpu_torch.msm import kernel as M
+    tab = table.prefix(words.shape[0])
+    w = words_on(tab, words)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    table = key.table()
-    ms = bound_ms = plain_ms = 0.0
-    for k, words in enumerate(packed):
-        tab = table.prefix(words.shape[0])
-        w = words_on(tab, words)
-        k_ms = time_ms(lambda: M.msm_words(tab, w), W_TIMED)
-        b_ms, by, madds, longest = bound.msm(words, tab.n)
-        print(f"  W commit {k}: kernel {k_ms:.3f} ms/launch (CUDA events, "
-              f"{W_TIMED} launches; the whole commit {c_s[k]:.3f} s, host "
-              f"clock); bound {b_ms:.3f} ms ({by}: {madds} mixed additions),"
-              f" {b_ms / k_ms:.1%} of it; longest bucket run {longest}")
-        ms, bound_ms = ms + k_ms, bound_ms + b_ms
-        if k == 0:              # against the plain version, over chunks
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            plain = None
-            for lo in range(0, tab.n, PLAIN_CHUNK):
-                part = M.msm_plain(key.curve, tab.rows[lo:lo + PLAIN_CHUNK],
-                                   w[lo:lo + PLAIN_CHUNK])
-                plain = key.curve.add(plain, M.to_affine(key.curve, part))
-            plain_ms = 1e3 * (time.perf_counter() - t1)
-            check(plain == points[0] == M.to_affine(
-                key.curve, M.msm_words(tab, w)),
-                "step 0's W commit differs from the plain version")
-    print(f"phase 7.3: the 8 W commits' kernels {ms:.3f} ms in all, bound "
-          f"{bound_ms:.3f} ms ({bound_ms / ms:.1%}); step 0's equals the "
-          f"plain version on the card ({plain_ms:.1f} ms, host clock) "
+    point = None
+    for lo in range(0, tab.n, PLAIN_CHUNK):
+        part = M.msm_plain(curve, tab.rows[lo:lo + PLAIN_CHUNK],
+                           w[lo:lo + PLAIN_CHUNK])
+        point = curve.add(point, M.to_affine(curve, part))
+    return point, 1e3 * (time.perf_counter() - t0)
+
+
+def phase8(bound, store, frames) -> dict:
+    """The fold on the card: NovaProver(rc=100, cuda).prove_from_frames on
+    phase 2's hydrated fib(100), then NovaProver.verify, and a proof with
+    one entry of its final W changed; each commit's kernel then timed
+    alone. Returns the fold's K6 figures for the kernels line."""
+    from lurk_tpu_torch.hostlib.r1cs import PackedVec
+    from lurk_tpu_torch.msm import kernel as M
+    from lurk_tpu_torch.poseidon import kernel as K
+    from lurk_tpu_torch.proof import nova
+    from lurk_tpu_torch.proof.prover import NovaProver
+    from lurk_tpu_torch.utils import metrics
+
+    # every commit's vector and point, in order: W and T of each step,
+    # then the verifier's W and E
+    commits = []
+    commit = nova.CommitmentKey.commit
+
+    def recording_commit(key, vec):
+        point = commit(key, vec)
+        commits.append((PackedVec.pack(vec, key.curve.order), point))
+        return point
+
+    nova.CommitmentKey.commit = recording_commit
+    try:
+        metrics.drain()
+        prover = NovaProver(rc=STEP_RC, device="cuda")
+        K.launches = M.launches = K.dense_launches = K.folded_launches = 0
+        t0 = time.perf_counter()
+        pp, proof = prover.prove_from_frames(store, frames)
+        torch.cuda.synchronize()
+        t_prove = time.perf_counter() - t0
+        launches = M.launches
+        poseidon = (K.launches, K.dense_launches, K.folded_launches)
+        n_steps = len(proof.steps)
+        check(n_steps == len(frames) // STEP_RC == 8,
+              f"{n_steps} folding steps, expected 8")
+        check(launches == 2 * n_steps, f"{launches} MSM launches in the "
+              f"prove, expected {2 * n_steps} (W and T a step)")
+        check(poseidon == (0, 0, 0), f"Poseidon launches {poseidon} in the "
+              "prove (the store was hydrated in phase 2)")
+        shape = pp.shape
+        check([len(v) for v, _ in commits] ==
+              [shape.num_aux, shape.num_constraints] * n_steps,
+              "the commits are not W and T of each step")
+        times = {k: metrics.values(f"nova.{k}") for k in
+                 ("witness", "pack", "commit_w", "cross_term", "commit_t",
+                  "fold", "shape", "shape_save")}
+        table_s = metrics.values("ck.table")
+        check(len(times["shape"]) == 1, "the shape was not built (the "
+              "parameter cache starts cold)")
+        print(f"phase 8.1: NovaProver(rc={STEP_RC}, cuda).prove_from_frames("
+              f"fib(100)): {n_steps} steps in {t_prove:.1f} s; the shape "
+              f"{shape.num_constraints} constraints, {shape.num_aux} aux, "
+              f"{shape.num_inputs} inputs, built in {times['shape'][0]:.1f} s "
+              f"(step 0's full synthesis and the shape digest) and saved "
+              f"in {times['shape_save'][0]:.1f} s; key 2^"
+              f"{len(pp.ck.gens).bit_length() - 1}, its table on the card "
+              f"{sum(table_s):.1f} s (in step 0's commit of W); {launches} "
+              f"MSM launches, no Poseidon launch")
+
+        t0 = time.perf_counter()
+        M.launches = 0
+        ok = NovaProver.verify(pp, proof)
+        torch.cuda.synchronize()
+        t_verify = time.perf_counter() - t0
+        verify_launches = M.launches
+        check(ok, "NovaProver.verify rejects the fold's proof")
+        check(verify_launches == 2, f"{verify_launches} MSM launches in "
+              "the verify, expected 2 (W and E)")
+        w = proof.final_witness.w
+        bad_w = PackedVec(w.arr.copy(), w.n, w.p)
+        bad_w[w.n // 2] = (bad_w[w.n // 2] + 1) % w.p
+        bad = nova.FoldingProof(
+            proof.steps, nova.RelaxedWitness(bad_w, proof.final_witness.e),
+            proof.z0, proof.zi)
+        check(not NovaProver.verify(pp, bad),
+              "verify accepts a proof whose final W was changed")
+    finally:
+        nova.CommitmentKey.commit = commit
+    print(f"phase 8.2: NovaProver.verify accepts ({t_verify:.1f} s, "
+          f"{verify_launches} MSM launches: W and E) and rejects the proof "
+          f"with one entry of its final W changed")
+
+    # each commit's kernel alone (the launch the commit made: its rows)
+    t0 = time.perf_counter()
+    table = pp.ck.table()
+    curve = pp.curve
+    k_ms, b_ms = [], []
+    for vec, point in commits[:2 * n_steps + 2]:
+        words = vec.arr.view(np.uint32).reshape(vec.n, 8)
+        tab = table.prefix(vec.n)
+        wt = words_on(tab, words)
+        check(M.to_affine(curve, M.msm_words(tab, wt)) == point,
+              "a commit's kernel alone differs from the commit")
+        k_ms.append(time_ms(lambda: M.msm_words(tab, wt), W_TIMED))
+        b_ms.append(bound.msm(words, tab.n)[0])
+    for k in range(n_steps):
+        wit = (f"{times['witness'][k - 1]:.3f}" if k else
+               "(full synthesis, in the shape)")
+        print(f"  step {k}: witness {wit} s, pack "
+              f"{times['pack'][k]:.4f} s, commit W {times['commit_w'][k]:.3f}"
+              f" s, cross-term {times['cross_term'][k]:.3f} s, commit T "
+              f"{times['commit_t'][k]:.3f} s, fold {times['fold'][k]:.3f} s "
+              f"(host clock); K6 W {k_ms[2 * k]:.3f} ms (bound "
+              f"{b_ms[2 * k]:.3f}), T {k_ms[2 * k + 1]:.3f} ms (bound "
+              f"{b_ms[2 * k + 1]:.3f}) (CUDA events, {W_TIMED} launches)")
+    print(f"  verify: K6 W {k_ms[-2]:.3f} ms, E {k_ms[-1]:.3f} ms")
+    # step 0's W and T against the plain version (T of step 0 folds into
+    # the zero accumulator and is all zero), and step 1's T, the first
+    # non-zero one
+    plain_ms = 0.0
+    for k, what in ((0, "step 0's W"), (1, "step 0's T"), (3, "step 1's T")):
+        vec, point = commits[k]
+        words = vec.arr.view(np.uint32).reshape(vec.n, 8)
+        plain, ms = plain_commit(curve, table, words)
+        plain_ms += ms
+        check(plain == point, f"{what} commit differs from the plain version")
+    check(commits[1][1] is None and commits[3][1] is not None,
+          "step 0's T is not the identity or step 1's T is")
+    ms, bound_ms = sum(k_ms), sum(b_ms)
+    print(f"phase 8.3: the fold's {len(k_ms)} commits' kernels {ms:.3f} ms "
+          f"in all, bound {bound_ms:.3f} ms ({bound_ms / ms:.1%}); step 0's "
+          f"W and T and step 1's T equal the plain version on the card "
+          f"({plain_ms:.1f} ms, host clock) "
           f"({time.perf_counter() - t0:.1f} s)")
-    return {"launches": len(steps), "ms": ms, "bound_ms": bound_ms,
-            "plain_ms": plain_ms}
-
-
-def statistics_line(values) -> str:
-    """"mean (min-max)" of a list of seconds."""
-    return (f"{sum(values) / len(values):.3f} ({min(values):.3f}-"
-            f"{max(values):.3f})")
+    return {"launches": launches + verify_launches, "ms": ms,
+            "bound_ms": bound_ms, "plain_ms": plain_ms}
 
 
 def imad_rate(sms: int):
@@ -1289,7 +1352,7 @@ def main() -> int:
 
     # ---- phase 4: K6 ----
     shard_devices = [torch.device("cuda", 0)] * 2
-    msm, key = phase4(bound, dev, shard_devices)
+    msm = phase4(bound, dev, shard_devices)
 
     # ---- phase 5: K2 ----
     dense = phase5(bound, gen, dev, host, shard_devices)
@@ -1297,13 +1360,14 @@ def main() -> int:
     # ---- phase 6: the folded Poseidon and the bench ----
     folded = phase6(bound, gen, dev)
 
-    # ---- phase 7: step witnesses of fib(100), committed through K6 ----
-    w_commits = phase7(bound, store, frames, key)
-    msm["launches"] += w_commits["launches"]
-    msm["ms"] += w_commits["ms"]
-    msm["bound_ms"] += w_commits["bound_ms"]
-    msm["plain_ms"] += w_commits["plain_ms"]
-    msm["plain_of"] = "the 2^20 commit and step 0's W"
+    # ---- phase 7: the step circuit ----
+    phase7(store, frames)
+
+    # ---- phase 8: the fold of fib(100), its commits through K6 ----
+    fold = phase8(bound, store, frames)
+    for k in ("launches", "ms", "bound_ms", "plain_ms"):
+        msm[k] += fold[k]
+    msm["plain_of"] = "the 2^20 commit, step 0's W and T, step 1's T"
 
     print(json.dumps({"kernels": [sparse, dense, msm, folded]}))
     print(f"total {time.perf_counter() - t_all:.1f} s")

@@ -15,9 +15,9 @@ per pasta_curves.
 Differences from the copy's source: :meth:`Curve.derive_generators_from`
 routes ranges of 64 or more to the port's host C++
 (``csrc/host/pedersen.cpp``) and raises if it cannot be built;
-:meth:`Curve.pippenger` is the Python path only (the JAX package's
-``native/msm.cpp`` is not carried over: the port's commits go to the
-CUDA kernel).
+:meth:`Curve.pippenger` is the Python path only (the port's copy of
+the JAX package's ``native/msm.cpp`` is ``hostlib/msm.py``, a CPU
+commitment key's route; a CUDA key commits through the MSM kernel).
 """
 
 from __future__ import annotations

@@ -3,8 +3,9 @@
 Counterpart of the JAX package's ``msm/device_v2.py``: host digit and
 scalar packing (:func:`signed_digits`, :func:`pack_scalar_words`, with
 numpy), :class:`MsmTable` (bases resident on a device, ``msm`` /
-``msm_async``), and :func:`table_from_bytes`, which turns generators in
-the params-cache byte layout (a JAX key's, for one) into a table.
+``msm_async`` on ints, ``msm_words_async`` on packed words), and
+:func:`table_from_bytes`, which turns generators in the params-cache
+byte layout (a JAX key's, for one) into a table.
 
 :func:`msm_words` is the wrapper of ``csrc/msm.cu``: on a CUDA table it
 launches the kernel (and counts the launch in :data:`launches`); on a
@@ -226,14 +227,22 @@ class MsmTable:
         """The projective ``[3, 8]`` result on the table's device,
         without waiting for it. Only the scalars' rows go to the MSM
         (the table's first ``len(scalars)``, at least one)."""
-        if len(scalars) > self.n_points:
-            raise ValueError(f"{len(scalars)} scalars for a table of "
-                             f"{self.n_points} bases")
-        m = max(1, len(scalars))
-        words = np.zeros((m, 8), dtype=np.uint32)
-        words[:len(scalars)] = pack_scalar_words(scalars, self.curve.order)
-        w = torch.from_numpy(words.view(np.int32)).to(self.device)
-        return msm_words(self.prefix(m), w)
+        words = pack_scalar_words(scalars, self.curve.order)
+        return self.msm_words_async(torch.from_numpy(words.view(np.int32)))
+
+    def msm_words_async(self, words: torch.Tensor) -> torch.Tensor:
+        """:meth:`msm_async` of scalars already reduced mod the group
+        order, as ``int32[m, 8]`` little-endian words on any device (a
+        packed vector's limbs viewed as words, for one): they go to the
+        table's device and to :func:`msm_words` with no Python ints."""
+        m = words.shape[0]
+        if m > self.n_points:
+            raise ValueError(f"{m} scalars for a table of {self.n_points} "
+                             f"bases")
+        if m == 0:
+            words = torch.zeros((1, 8), dtype=torch.int32)
+        return msm_words(self.prefix(words.shape[0]),
+                         words.to(self.device).contiguous())
 
     def prefix(self, m: int) -> "MsmTable":
         """The table of the first ``m`` rows (a view, no copy)."""

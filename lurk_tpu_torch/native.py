@@ -6,9 +6,11 @@ of the sources and the flags, both at first use (never on import):
 - ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
   shared library with a plain C interface (:func:`build`, :func:`load`,
   several sources at once with :func:`build_many`);
-- ``csrc/host/<name>.cpp`` (host C++: generator derivation, SRS, and a
-  runner of two kernels' per-thread bodies that includes their ``.cu``
-  sources) is compiled with ``g++`` (:func:`load_host`).
+- ``csrc/host/<name>.cpp`` (host C++: generator derivation, SRS, the
+  witness trace, the fold's sparse R1CS, the CPU key's MSM, int packing
+  over the CPython API, and a runner of the kernels' per-thread bodies
+  that includes their ``.cu`` sources) is compiled with ``g++``
+  (:func:`load_host`).
 
 A build writes a file unique to the process and ``os.replace``s it
 into place, so concurrent builds are safe. There is no fallback:
@@ -22,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 import time
 import uuid
@@ -35,7 +38,7 @@ BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 GXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17",
-             "-pthread"]
+             "-pthread", f"-I{sysconfig.get_paths()['include']}"]
 BUILD_TIMEOUT_S = 600
 
 _HOST_LIBS: Dict[str, ctypes.CDLL] = {}
@@ -184,13 +187,14 @@ def build_host(names: Iterable[str] = ()) -> Dict[str, float]:
                                   host_library_path(n)) for n in names})
 
 
-def load_host(name: str) -> ctypes.CDLL:
+def load_host(name: str, loader=ctypes.CDLL) -> ctypes.CDLL:
     """The library of ``csrc/host/<name>.cpp``, loaded once per process
-    and built first if needed."""
+    and built first if needed. A library whose functions take Python
+    objects is loaded with ``loader=ctypes.PyDLL``, which keeps the
+    interpreter lock during a call."""
     with _HOST_LOCK:
         lib = _HOST_LIBS.get(name)
         if lib is None:
             build_host([name])
-            lib = _HOST_LIBS[name] = ctypes.CDLL(
-                str(host_library_path(name)))
+            lib = _HOST_LIBS[name] = loader(str(host_library_path(name)))
     return lib

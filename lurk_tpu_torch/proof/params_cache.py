@@ -1,8 +1,12 @@
-"""Public-parameter disk cache: commitment-key generators.
+"""Public-parameter disk cache: commitment-key generators and R1CS
+shapes.
 
-The part of the JAX package's ``proof/params_cache.py`` that the
-commitment layer needs (``cache_dir``, ``_gens_to_bytes``,
-``_gens_from_bytes``, ``load_generators``, ``_atomic_write``). The
+The parts of the JAX package's ``proof/params_cache.py`` that the
+commitment layer and the fold need (``cache_dir``, ``_gens_to_bytes``,
+``_gens_from_bytes``, ``load_generators``, ``_atomic_write``; the shape
+cache ``shape_cache_key``, ``save_shape``, ``load_shape``,
+``_LazyRows``, ``cached_shape``, whose CSR arrays let the host R1CS skip
+the LC-dict rows of a cached shape). The
 on-disk layout is the JAX package's: 32-byte little-endian x and then y
 per point, with a JSON sidecar. The directory is the port's own,
 ``torch_public_params`` under the same ``LURK_TPU_CACHE`` base
@@ -21,6 +25,7 @@ import numpy as np
 
 from ..curves.weierstrass import Affine, Curve
 from ..hostlib import points_from_limbs
+from ..hostlib.fastpack import unpack_ints
 from ..ops import field as F
 
 
@@ -77,3 +82,117 @@ def _atomic_write(path: Path, data: bytes) -> None:
     tmp = path.with_suffix(path.suffix + f".tmp.{os.getpid()}")
     tmp.write_bytes(data)
     os.replace(tmp, path)
+
+
+# ---------------------------------------------------------------------------
+# R1CS shape disk cache (abomonation-analog reload): skips the full
+# first-step circuit synthesis on repeat proves.
+# ---------------------------------------------------------------------------
+
+
+def _shape_path(key: str) -> Path:
+    return cache_dir() / f"shape-{key}.npz"
+
+
+def shape_cache_key(field_name: str, rc: int, func) -> str:
+    """Content-derived key: the LEM step function's frozen-IR repr is
+    deterministic, so (field, rc, IR) pins the circuit."""
+    import hashlib
+    h = hashlib.sha256()
+    h.update(field_name.encode())
+    h.update(str(rc).encode())
+    h.update(repr(func).encode())
+    return h.hexdigest()[:32]
+
+
+def save_shape(key: str, shape) -> None:
+    """The shape's CSR arrays (:meth:`..proof.nova.R1CSShape.csr`),
+    counts and digest, as the JAX package lays them out."""
+    import io
+    arrays = {}
+    for name, (indptr, idx, coef) in zip("abc", shape.csr()):
+        arrays[f"{name}_indptr"] = indptr.astype(np.int64)
+        arrays[f"{name}_idx"] = idx.astype(np.int64)
+        arrays[f"{name}_coef"] = coef.view(np.uint8)
+    arrays["meta"] = np.asarray(
+        [shape.num_inputs, shape.num_aux, shape.num_constraints],
+        dtype=np.int64)
+    buf = io.BytesIO()
+    np.savez_compressed(buf, digest=np.frombuffer(
+        shape.digest.encode(), dtype=np.uint8), **arrays)
+    _atomic_write(_shape_path(key), buf.getvalue())
+
+
+def load_shape(key: str, field):
+    """The cached R1CSShape, or None. Its rows are materialized only on
+    access (:class:`_LazyRows`); the host R1CS takes its CSR arrays."""
+    from .nova import R1CSShape
+    path = _shape_path(key)
+    if not path.exists():
+        return None
+    try:
+        z = np.load(path)
+    except OSError:
+        return None
+    num_inputs, num_aux, m = (int(v) for v in z["meta"])
+    csr = [(z[f"{name}_indptr"].astype(np.uint64),
+            z[f"{name}_idx"].astype(np.uint64),
+            z[f"{name}_coef"].view(np.uint64)) for name in "abc"]
+    shape = R1CSShape.__new__(R1CSShape)
+    shape.p = field.modulus
+    shape.field = field
+    shape.num_inputs = num_inputs
+    shape.num_aux = num_aux
+    shape.rows = _LazyRows(csr, m)
+    shape.digest = z["digest"].tobytes().decode()
+    shape._csr = csr
+    return shape
+
+
+class _LazyRows:
+    """List-like view over cached CSR arrays that materializes the
+    Python LC-dict rows only on real access (len() stays cheap)."""
+
+    def __init__(self, csr, m: int):
+        self._csr = csr
+        self._m = m
+        self._rows = None
+
+    def _mat(self):
+        if self._rows is None:
+            rows = [({}, {}, {}) for _ in range(self._m)]
+            for which in range(3):
+                indptr, idx, coef = self._csr[which]
+                coefs = unpack_ints(coef, len(idx))
+                idx_l = idx.tolist()
+                ip = indptr.tolist()
+                for r in range(self._m):
+                    lc = rows[r][which]
+                    for j in range(ip[r], ip[r + 1]):
+                        lc[idx_l[j]] = coefs[j]
+            self._rows = rows
+        return self._rows
+
+    def __len__(self) -> int:
+        return self._m
+
+    def __iter__(self):
+        return iter(self._mat())
+
+    def __getitem__(self, i):
+        return self._mat()[i]
+
+
+def cached_shape(key, field, synth_fn):
+    """Load an R1CSShape from the disk cache or synthesize and save it.
+    The cycle backends' augmented shapes cost minutes of Python LC
+    algebra to synthesize; the cache turns that into an npz load."""
+    shape = load_shape(key, field)
+    if shape is not None:
+        return shape
+    shape = synth_fn()
+    try:
+        save_shape(key, shape)
+    except OSError:
+        pass
+    return shape

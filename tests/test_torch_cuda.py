@@ -1,9 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions on the card:
 K1 (sparse Poseidon) and K2 (dense Poseidon) in both shapes (a lane
 group per hash below their kThreadFrom batch, one thread per hash from
-it), K6 (MSM), the sharded prover layer over [cuda:0, cuda:0], and the
-folded Poseidon (K3b/K4b's counterpart) with the bench's Poseidon
-figures through each schedule.
+it), K6 (MSM, also reached by a packed vector's commit), the sharded
+prover layer over [cuda:0, cuda:0], and the folded Poseidon (K3b/K4b's
+counterpart) with the bench's Poseidon figures through each schedule.
 
 Needs a CUDA card and nvcc; every case skips without a card. Imports
 nothing of the JAX package, so it runs where jax is not installed:
@@ -17,11 +17,13 @@ import torch
 from lurk_tpu_torch import bench
 from lurk_tpu_torch.curves.weierstrass import CURVE_FOR_FIELD
 from lurk_tpu_torch.fields import BN256_SCALAR, FIELDS
+from lurk_tpu_torch.hostlib.r1cs import PackedVec
 from lurk_tpu_torch.msm import kernel as M
 from lurk_tpu_torch.ops import field as F
 from lurk_tpu_torch.parallel import sharding
 from lurk_tpu_torch.poseidon import kernel as K
 from lurk_tpu_torch.poseidon.host import hash_preimage
+from lurk_tpu_torch.proof.nova import CommitmentKey
 from test_torch_field import one_torch_thread  # noqa: F401
 
 CASES = [(name, arity) for name in sorted(FIELDS) for arity in (3, 4, 6, 8)]
@@ -334,3 +336,26 @@ def test_folded_kernel_on_p_minus_1(card, name, arity):
     got = K.poseidon_hash_folded(field, arity, x)
     assert torch.equal(got, K.poseidon_hash_folded_plain(field, arity, x))
     assert torch.equal(got, K.poseidon_hash(field, arity, x))
+
+
+@pytest.mark.cuda
+def test_packed_commit_on_card(card):
+    """CommitmentKey.commit of a PackedVec on a CUDA key: its limbs go to
+    the kernel as words (one launch), equal to the commit of the ints
+    and to the plain version on the same words."""
+    curve = CURVE_BY_NAME["bn254-g1"]
+    n = 3000
+    pts = curve.derive_generators_from(b"test_torch_cuda.packed", 0, n)
+    key = CommitmentKey(curve, pts, card)
+    rng = np.random.default_rng(11)
+    scal = [int.from_bytes(rng.bytes(32), "little") % curve.order
+            for _ in range(n)]
+    scal[:3] = [0, 1, curve.order - 1]
+    packed = PackedVec.pack(scal, curve.order)
+    launches = M.launches
+    got = key.commit(packed)
+    assert M.launches == launches + 1
+    assert got == key.commit(scal) and got is not None
+    tab = key.table().prefix(n)
+    words = torch.from_numpy(packed.arr.view(np.int32).reshape(n, 8)).to(card)
+    assert got == M.to_affine(curve, M.msm_plain(curve, tab.rows, words))

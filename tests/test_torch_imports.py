@@ -1,6 +1,7 @@
 """The port imports neither jax nor anything of the JAX package, at run
 time (every module imported in a fresh interpreter) and in its source
-(every import statement of the package and of chip_smoke.py)."""
+(every import statement of the package, of chip_smoke.py and of
+scripts/torch_host_timings.py)."""
 
 import ast
 import pathlib
@@ -12,7 +13,8 @@ from test_torch_field import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "lurk_tpu_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_host_timings.py"]
 
 
 def _module_names():

@@ -1,7 +1,8 @@
 """The port's MSM layer (lurk_tpu_torch.msm.kernel, proof.nova's
 CommitmentKey) against the JAX package's, exact (points are integers).
 
-On the CPU a table's MSM runs the kernel's plain version. The JAX side
+On the CPU a table's MSM runs the kernel's plain version, and a CPU
+key commits through the port's host C++ Pippenger. The JAX side
 is its host Pippenger on the Python path (``native.msm`` reported
 unavailable, which also keeps its C++ build out of the test), and its
 ``signed_digits``; the JAX device MSM is not run here (its XLA:CPU
@@ -88,9 +89,9 @@ def witness(n: int, seed: int) -> list:
 
 @pytest.mark.parametrize("n", [64, 200])
 def test_commitment_key_matches_jax(n, tmp_path, monkeypatch):
-    """setup (hash-derived generators, the prover's label), the table
-    route at n and the host route below 64, against the JAX key's host
-    route over the same generators (their derivation is held against
+    """setup (hash-derived generators, the prover's label), a CPU key's
+    host C++ route at n and its Python route below 64, against the JAX
+    key's host route over the same generators (their derivation is held against
     the JAX package's in test_torch_curves.py)."""
     monkeypatch.setattr(params_cache, "cache_dir", lambda: tmp_path)
     label = b"lurk_tpu.ck.grumpkin"

@@ -94,6 +94,7 @@ def test_host_build_needs_gxx(build_dir, monkeypatch):
 
 def test_host_build_compiles_every_host_source(build_dir):
     times = native.build_host()
-    assert sorted(times) == ["kernel_bodies", "pedersen", "poseidon", "srs"]
+    assert sorted(times) == ["fastpack", "kernel_bodies", "msm", "pedersen",
+                            "poseidon", "r1cs", "srs"]
     assert all(native.host_library_path(n).exists() for n in times)
     assert native.build_host() == {}
