@@ -69,7 +69,28 @@ Phases, each fatal on failure:
      entry of its final W changed; each step's phase times (host
      clock), then each commit's kernel timed alone (CUDA events) with
      its bound; step 0's W and T (all zero: it folds into the zero
-     accumulator) and step 1's T against the plain version on the card.
+     accumulator) and step 1's T against the plain version on the card;
+  9. the cycle fold, the reference's main path, on phase 2's store:
+     sn_cycle_public_params(rc=100, cuda) built and timed (the primary
+     circuit's full synthesis, its digest and save, the secondary's, the
+     BN254 2^21 and Grumpkin 2^15 keys) and dropped from memory, then
+     SuperNovaCycleProver(rc=100, cuda).prove_from_frames, which loads
+     them from the disk cache as a new process would: 8 steps, the
+     step witnesses from the fork pool, 16 K6 launches on BN254 (W1 and
+     T1 of each step) and 16 on Grumpkin (W2 of each step, T2 of steps
+     1-7 and finish's), no Poseidon launch; each step's phase times
+     (host clock, ``supernova_cycle.*``) and one step's witness
+     synthesized inline beside the pool's waits; verify (4 launches: W
+     and E on each curve) accepts and rejects the proof with one entry
+     of its final W1 changed; each commit's kernel timed alone with its
+     bound, by curve and size class; step 0's W1 and W2 and step 1's T2
+     against the plain version on the card;
+  10. compression: compress_sn_cycle (Spartan with HyperKZG's commits
+     through K6 on BN254, the IPA's MSMs on the host on Grumpkin), its
+     phases' times (``spartan.*``), verify_compressed_sn_cycle (no MSM
+     launch) accepts and rejects the proof with one sumcheck value
+     changed; HyperKZG's K6 commits timed alone with their bounds; then
+     fib(100) prove + compress + verify s and frames/s.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -79,6 +100,7 @@ without a CUDA card or without the rest of the repository.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -268,22 +290,59 @@ class Bound:
         return self._max(ops, b * (arity + 1) * 16 * 4 + const_bytes)
 
     def msm(self, words: np.ndarray, table_rows: int):
-        """The MSM of these reduced scalar words with the kernel's 16-bit
-        signed windows: one mixed addition for each non-zero digit that
-        is not the first of its bucket (this run's data), and 2 additions
-        per bucket for the running sums; bytes: the table, the scalars
-        and the result once. Returns (ms, bound_by, mixed additions,
-        the longest bucket run)."""
+        """The MSM of these reduced scalar words at its least work over
+        the signed window widths c = 1 .. MSM_BOUND_MAX_C, from this
+        run's digits: in each window one mixed addition for each
+        non-zero digit that is not the first of its bucket, and 2
+        additions per bucket up to the highest occupied one for the
+        running sums (the windows' doublings left out); bytes: the table, the scalars and the
+        result once. Returns (ms, bound_by, the least width, its mixed
+        additions, the longest bucket run at K6's own 16-bit window)."""
         from lurk_tpu_torch.msm.kernel import (
-            C_BITS, N_BUCKETS, N_WIN, digits_from_words)
-        madds = longest = 0
-        for win in digits_from_words(words, C_BITS)[0]:
-            sizes = np.bincount(win, minlength=N_BUCKETS + 1)[1:]
-            madds += int(sizes.sum()) - int(np.count_nonzero(sizes))
-            longest = max(longest, int(sizes.max()))
-        ops = madds * MADD + 2 * N_WIN * N_BUCKETS * ADD
+            C_BITS, N_BUCKETS, digits_from_words)
+        longest = max(int(np.bincount(win, minlength=N_BUCKETS + 1)[1:]
+                          .max()) for win in
+                      digits_from_words(words, C_BITS)[0])
+        ops, c, madds = least_msm_work(words)
         nbytes = table_rows * 64 + words.shape[0] * 32 + 96
-        return (*self._max(ops, nbytes), madds, longest)
+        return (*self._max(ops, nbytes), c, madds, longest)
+
+
+MSM_BOUND_MAX_C = 22
+
+
+def least_msm_work(words: np.ndarray):
+    """(IMAD count, width, mixed additions) of the cheapest signed-window
+    bucket MSM of ``uint32[n, 8]`` scalar words over the widths 1 ..
+    MSM_BOUND_MAX_C (top window unsigned, as K6's), counted on the card
+    with torch (no kernel of the port)."""
+    w = torch.from_numpy(np.ascontiguousarray(words).astype(np.int64)) \
+        .to("cuda")
+    n = w.shape[0]
+    best = None
+    for c in range(1, MSM_BOUND_MAX_C + 1):
+        n_win = -(-256 // c)
+        mask, half, full = (1 << c) - 1, 1 << (c - 1), 1 << c
+        carry = torch.zeros(n, dtype=torch.int64, device="cuda")
+        madds = sums = torch.zeros((), dtype=torch.int64, device="cuda")
+        for win in range(n_win):
+            i, sh = divmod(win * c, 32)
+            v = w[:, i] >> sh
+            if sh + c > 32 and i + 1 < 8:
+                v = v | (w[:, i + 1] << (32 - sh))
+            d = (v & mask) + carry
+            if win < n_win - 1:
+                neg = d > half
+                d = torch.where(neg, full - d, d)
+                carry = neg.to(torch.int64)
+            sizes = torch.bincount(d)[1:]
+            madds = madds + sizes.sum() - torch.count_nonzero(sizes)
+            sums = sums + d.max()
+        madds = int(madds)
+        ops = madds * MADD + 2 * int(sums) * ADD
+        if best is None or ops < best[0]:
+            best = (ops, c, madds)
+    return best
 
 
 def compare(field, arity, x, hash_fn, plain_fn):
@@ -515,11 +574,11 @@ def skewed(bound, rng, table, random_ms: float, check_plain: bool):
                   "MSM(s, ..., s) differs from s MSM(1, ..., 1) at 2^20")
         k_ms = out[label] = time_ms(lambda: M.msm_words(tab, w),
                                     TIMED_LAUNCHES)
-        b_ms, by, madds, longest = bound.msm(words, tab.n)
+        b_ms, by, c, madds, longest = bound.msm(words, tab.n)
         print(f"  K6 2^20 {label}: {k_ms:.3f} ms/launch ({k_ms / random_ms:.2f}"
               f"x the random vector's {random_ms:.3f} ms); bound {b_ms:.3f} "
-              f"ms ({by}: {madds} mixed additions), {b_ms / k_ms:.1%} of it; "
-              f"longest bucket run {longest}")
+              f"ms ({by}: {madds} mixed additions at {c}-bit windows), "
+              f"{b_ms / k_ms:.1%} of it; longest bucket run {longest}")
     print(f"phase 4.5: K6 on three skewed vectors at 2^20"
           + (" (each kind = plain at 2^16; all equal = s MSM(1..1))"
              if check_plain else "")
@@ -567,7 +626,7 @@ def phase4(bound, dev, devices):
     w12 = words_on(base, checked["bn254-g1"][1])
     k12 = time_ms(lambda: M.msm_words(base, w12), TIMED_LAUNCHES)
     p12 = time_ms(lambda: M.msm_plain(BN254_G1, base.rows, w12), 1)
-    b12, by12, _, _ = bound.msm(checked["bn254-g1"][1], base.n)
+    b12, by12, *_ = bound.msm(checked["bn254-g1"][1], base.n)
     print(f"phase 4.1: 4 curves at n=2^12 and 1024 bases x 4: kernel = "
           f"plain = host Pippenger; BN254 n=2^12: kernel {k12:.3f} ms, "
           f"plain {p12:.1f} ms, bound {b12:.4f} ms ({by12}) "
@@ -639,12 +698,12 @@ def phase4(bound, dev, devices):
         w = words_on(tab, words)
         k_ms = k_times[label] = time_ms(lambda: M.msm_words(tab, w),
                                         TIMED_LAUNCHES)
-        b_ms, by, madds, longest = bound.msm(words, tab.n)
+        b_ms, by, c, madds, longest = bound.msm(words, tab.n)
         print(f"  commit {label}: kernel {k_ms:.3f} ms/launch (CUDA events, "
               f"{TIMED_LAUNCHES} launches), whole commit {hs:.3f} s (host "
               f"clock: packing, kernel, affine); bound {b_ms:.3f} ms ({by}: "
-              f"{madds} mixed additions), {b_ms / k_ms:.1%} of it; longest "
-              f"bucket run {longest}")
+              f"{madds} mixed additions at {c}-bit windows), "
+              f"{b_ms / k_ms:.1%} of it; longest bucket run {longest}")
         ms, bound_ms = ms + k_ms, bound_ms + b_ms
         bound_by.add(by)
     w = words_on(table, vecs[n20])
@@ -981,21 +1040,13 @@ def phase8(bound, store, frames) -> dict:
     from lurk_tpu_torch.proof.prover import NovaProver
     from lurk_tpu_torch.utils import metrics
 
-    # every commit's vector and point, in order: W and T of each step,
-    # then the verifier's W and E
-    commits = []
-    commit = nova.CommitmentKey.commit
-
-    def recording_commit(key, vec):
-        point = commit(key, vec)
-        commits.append((PackedVec.pack(vec, key.curve.order), point))
-        return point
-
-    nova.CommitmentKey.commit = recording_commit
-    try:
+    # every commit's key, vector and point, in order: W and T of each
+    # step, then the verifier's W and E
+    with CommitRecorder() as rec:
+        commits = rec.records
         metrics.drain()
         prover = NovaProver(rc=STEP_RC, device="cuda")
-        K.launches = M.launches = K.dense_launches = K.folded_launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         pp, proof = prover.prove_from_frames(store, frames)
         torch.cuda.synchronize()
@@ -1010,7 +1061,7 @@ def phase8(bound, store, frames) -> dict:
         check(poseidon == (0, 0, 0), f"Poseidon launches {poseidon} in the "
               "prove (the store was hydrated in phase 2)")
         shape = pp.shape
-        check([len(v) for v, _ in commits] ==
+        check([vec.n for _, vec, _ in commits] ==
               [shape.num_aux, shape.num_constraints] * n_steps,
               "the commits are not W and T of each step")
         times = {k: metrics.values(f"nova.{k}") for k in
@@ -1046,8 +1097,6 @@ def phase8(bound, store, frames) -> dict:
             proof.z0, proof.zi)
         check(not NovaProver.verify(pp, bad),
               "verify accepts a proof whose final W was changed")
-    finally:
-        nova.CommitmentKey.commit = commit
     print(f"phase 8.2: NovaProver.verify accepts ({t_verify:.1f} s, "
           f"{verify_launches} MSM launches: W and E) and rejects the proof "
           f"with one entry of its final W changed")
@@ -1057,7 +1106,7 @@ def phase8(bound, store, frames) -> dict:
     table = pp.ck.table()
     curve = pp.curve
     k_ms, b_ms = [], []
-    for vec, point in commits[:2 * n_steps + 2]:
+    for _, vec, point in commits[:2 * n_steps + 2]:
         words = vec.arr.view(np.uint32).reshape(vec.n, 8)
         tab = table.prefix(vec.n)
         wt = words_on(tab, words)
@@ -1081,12 +1130,12 @@ def phase8(bound, store, frames) -> dict:
     # non-zero one
     plain_ms = 0.0
     for k, what in ((0, "step 0's W"), (1, "step 0's T"), (3, "step 1's T")):
-        vec, point = commits[k]
+        _, vec, point = commits[k]
         words = vec.arr.view(np.uint32).reshape(vec.n, 8)
         plain, ms = plain_commit(curve, table, words)
         plain_ms += ms
         check(plain == point, f"{what} commit differs from the plain version")
-    check(commits[1][1] is None and commits[3][1] is not None,
+    check(commits[1][2] is None and commits[3][2] is not None,
           "step 0's T is not the identity or step 1's T is")
     ms, bound_ms = sum(k_ms), sum(b_ms)
     print(f"phase 8.3: the fold's {len(k_ms)} commits' kernels {ms:.3f} ms "
@@ -1096,6 +1145,304 @@ def phase8(bound, store, frames) -> dict:
           f"({time.perf_counter() - t0:.1f} s)")
     return {"launches": launches + verify_launches, "ms": ms,
             "bound_ms": bound_ms, "plain_ms": plain_ms}
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0."""
+    from lurk_tpu_torch.msm import kernel as M
+    from lurk_tpu_torch.poseidon import kernel as K
+    K.launches = M.launches = K.dense_launches = K.folded_launches = 0
+    M.launches_by_curve.clear()
+
+
+class CommitRecorder:
+    """While active, records each ``CommitmentKey.commit_async`` (and so
+    each ``commit``) as [key, packed vector, point], the point filled in
+    when the commit is resolved."""
+
+    def __enter__(self):
+        from lurk_tpu_torch.hostlib.r1cs import PackedVec
+        from lurk_tpu_torch.proof import nova
+        self.records = []
+        self.nova = nova
+        self.orig = orig = nova.CommitmentKey.commit_async
+
+        def recording(key, vec):
+            res = orig(key, vec)
+            rec = [key, PackedVec.pack(vec, key.curve.order), None]
+            self.records.append(rec)
+
+            def resolve():
+                rec[2] = res()
+                return rec[2]
+            return resolve
+        nova.CommitmentKey.commit_async = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.nova.CommitmentKey.commit_async = self.orig
+
+
+def kernel_alone(bound, recs):
+    """Each recorded commit of 64 or more scalars (K6's) through the
+    kernel alone, equal to its point, timed (CUDA events) with its
+    bound: [(curve name, n, ms, bound ms)]."""
+    from lurk_tpu_torch.msm import kernel as M
+    out = []
+    for key, vec, point in recs:
+        if vec.n < 64:
+            continue
+        words = vec.arr.view(np.uint32).reshape(vec.n, 8)
+        tab = key.table().prefix(vec.n)
+        wt = words_on(tab, words)
+        check(M.to_affine(key.curve, M.msm_words(tab, wt)) == point,
+              f"a {key.curve.name} commit's kernel alone differs from the "
+              f"commit")
+        out.append((key.curve.name, vec.n,
+                    time_ms(lambda: M.msm_words(tab, wt), W_TIMED),
+                    bound.msm(words, tab.n)[0]))
+    return out
+
+
+def by_class(timed):
+    """Timed commits grouped by curve and size class (2^k above n):
+    {(curve, k): [count, ms, bound ms]}."""
+    groups = {}
+    for name, n, ms, b in timed:
+        g = groups.setdefault((name, (n - 1).bit_length()), [0, 0.0, 0.0])
+        g[0] += 1
+        g[1] += ms
+        g[2] += b
+    return groups
+
+
+def print_classes(what: str, timed) -> None:
+    for (name, k), (count, ms, b) in sorted(by_class(timed).items()):
+        print(f"  {what} K6 {name} n <= 2^{k}: {count} launches, "
+              f"{ms:.3f} ms, bound {b:.3f} ms ({b / ms:.1%})")
+
+
+SN_PHASES = ("witness", "synthesize_primary", "pack_w1",
+             "commit_w1_dispatch", "cross_term1", "commit_t1",
+             "fold_witness1", "synthesize_secondary", "commit_w2",
+             "cross_term2", "commit_t2", "fold2")
+
+
+def phase9(bound, store, frames) -> dict:
+    """The cycle fold on the card: SuperNovaCycleProver(rc=100, cuda)
+    .prove_from_frames on phase 2's hydrated fib(100) (its public
+    parameters built first and timed, then dropped from memory, so that
+    the prove loads them from the disk cache), its verify, and a proof with one
+    entry of its final W1 changed; each commit's kernel timed alone;
+    step 0's W1 and a Grumpkin W2 and T2 against the plain version."""
+    from lurk_tpu_torch.hostlib.r1cs import PackedVec
+    from lurk_tpu_torch.msm import kernel as M
+    from lurk_tpu_torch.poseidon import kernel as K
+    from lurk_tpu_torch.proof import hyperkzg as hk
+    from lurk_tpu_torch.proof import nova
+    from lurk_tpu_torch.proof import prover_supernova_cycle as psc
+    from lurk_tpu_torch.utils import metrics
+
+    prover = psc.SuperNovaCycleProver(rc=STEP_RC, device="cuda")
+    metrics.drain()
+    t0 = time.perf_counter()
+    pp = psc.sn_cycle_public_params(store, STEP_RC, *prover.setup_funcs(),
+                                    device="cuda")
+    t_setup = time.perf_counter() - t0
+    s1, s2 = pp.shapes1[0], pp.shape2
+    print(f"phase 9.0: the cycle's public parameters at rc={STEP_RC} in "
+          f"{t_setup:.1f} s (cold cache: the primary circuit's full "
+          f"synthesis, its digest and save; the secondary's; the keys): "
+          f"primary {s1.num_constraints} constraints, {s1.num_aux} aux; "
+          f"secondary {s2.num_constraints}, {s2.num_aux}; keys BN254 2^"
+          f"{len(pp.ck1.gens).bit_length() - 1}, Grumpkin 2^"
+          f"{len(pp.ck2.gens).bit_length() - 1}")
+    padded = prover.chunks(store, frames)
+    check(prover.uses_pool(len(padded)), "the fork pool is off")
+    # the timed prove loads its parameters as a new process would: the
+    # shapes, generators and SRS from the disk cache, no object in memory
+    digest = pp.pp_digest
+    del pp
+    psc._PP_CACHE.clear()
+    hk._SRS_MEM.clear()
+    load = []
+    build_pp = psc.sn_cycle_public_params
+
+    def timed_pp(*args, **kwargs):
+        t = time.perf_counter()
+        out = build_pp(*args, **kwargs)
+        load.append(time.perf_counter() - t)
+        return out
+
+    psc.sn_cycle_public_params = timed_pp
+    with CommitRecorder() as rec:
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            pp, proof = prover.prove_from_frames(store, frames)
+        finally:
+            psc.sn_cycle_public_params = build_pp
+        torch.cuda.synchronize()
+        t_prove = time.perf_counter() - t0
+        by = dict(M.launches_by_curve)
+        poseidon = (K.launches, K.dense_launches, K.folded_launches)
+        check(len(load) == 1 and pp.pp_digest == digest,
+              "the prove's public parameters differ from the cold build's")
+        s1, s2 = pp.shapes1[0], pp.shape2
+        check(proof.n == len(frames) // STEP_RC == 8,
+              f"{proof.n} folding steps, expected 8")
+        check(by == {"bn254-g1": 16, "grumpkin": 16},
+              f"MSM launches by curve {by} in the prove, expected 16 + 16 "
+              f"(W1 and T1 of 8 steps; W2 of 8, T2 of steps 1-7 and "
+              f"finish's)")
+        check(poseidon == (0, 0, 0), f"Poseidon launches {poseidon} in the "
+              "prove (the store was hydrated in phase 2)")
+        check([(key.curve.name, vec.n) for key, vec, _ in rec.records] ==
+              [("bn254-g1", s1.num_aux), ("bn254-g1", s1.num_constraints),
+               ("grumpkin", s2.num_aux)]
+              + [("grumpkin", s2.num_constraints), ("bn254-g1", s1.num_aux),
+                 ("bn254-g1", s1.num_constraints), ("grumpkin", s2.num_aux)]
+              * 7 + [("grumpkin", s2.num_constraints)],
+              "the commits are not W1, T1 and W2 of each step and T2 of "
+              "the pending instances")
+        times = {k: metrics.values(f"supernova_cycle.{k}")
+                 for k in SN_PHASES}
+        tables = metrics.values("ck.table")
+        print(f"phase 9.1: SuperNovaCycleProver(rc={STEP_RC}, cuda)"
+              f".prove_from_frames(fib(100)): {proof.n} steps in "
+              f"{t_prove:.1f} s (the public parameters loaded from the "
+              f"disk cache in {load[0]:.1f} s of it; fork pool of "
+              f"{min(8, os.cpu_count() - 1)} workers; the keys' tables built "
+              f"on the card in step 0's "
+              f"commits: {' + '.join(f'{t:.2f}' for t in tables)} s), MSM "
+              f"launches {by}, no Poseidon launch")
+        for k in range(proof.n):
+            sec = ("" if k == 0 else
+                   f", secondary fold: cross-term "
+                   f"{times['cross_term2'][k - 1]:.3f}, commit T2 "
+                   f"{times['commit_t2'][k - 1]:.3f}, fold "
+                   f"{times['fold2'][k - 1]:.3f}")
+            print(f"  step {k} (host clock, s): wait for the witness "
+                  f"{times['witness'][k]:.3f}, synthesize primary "
+                  f"{times['synthesize_primary'][k]:.3f}, pack W1 "
+                  f"{times['pack_w1'][k]:.3f}, commit W1 dispatch "
+                  f"{times['commit_w1_dispatch'][k]:.3f}, cross-term1 "
+                  f"{times['cross_term1'][k]:.3f}, commit T1 (and wait "
+                  f"for W1) {times['commit_t1'][k]:.3f}, fold W1 "
+                  f"{times['fold_witness1'][k]:.3f}, synthesize secondary "
+                  f"{times['synthesize_secondary'][k]:.3f}, commit W2 "
+                  f"{times['commit_w2'][k]:.3f}{sec}")
+        print(f"  finish: cross-term2 {times['cross_term2'][-1]:.3f}, commit "
+              f"T2 {times['commit_t2'][-1]:.3f}, fold "
+              f"{times['fold2'][-1]:.3f} s")
+        t0 = time.perf_counter()
+        psc.step_witness(pp, store, padded, 1)
+        t_inline = time.perf_counter() - t0
+        print(f"  step 1's witness synthesized inline: {t_inline:.3f} s "
+              f"(the pool's waits: {sum(times['witness']):.3f} s in all)")
+
+        reset_counts()
+        t0 = time.perf_counter()
+        ok = prover.verify(pp, proof)
+        torch.cuda.synchronize()
+        t_verify = time.perf_counter() - t0
+        vby = dict(M.launches_by_curve)
+        check(ok, "SuperNovaCycleProver.verify rejects the fold's proof")
+        check(vby == {"bn254-g1": 2, "grumpkin": 2}, f"MSM launches "
+              f"{vby} in the verify, expected 2 + 2 (W and E a curve)")
+        w = proof.w1s[0].w
+        bad_w = PackedVec(w.arr.copy(), w.n, w.p)
+        bad_w[w.n // 2] = (bad_w[w.n // 2] + 1) % w.p
+        bad = dataclasses.replace(
+            proof, w1s=[nova.RelaxedWitness(bad_w, proof.w1s[0].e)])
+        check(not prover.verify(pp, bad),
+              "verify accepts a proof whose final W1 was changed")
+        records = list(rec.records)
+    print(f"phase 9.2: verify accepts ({t_verify:.1f} s, MSM launches "
+          f"{vby}) and rejects the proof with one entry of its final W1 "
+          f"changed")
+
+    t0 = time.perf_counter()
+    timed = kernel_alone(bound, records)
+    check(len(timed) == 36, f"{len(timed)} commits timed, expected 36")
+    print_classes("prove", timed[:32])
+    print_classes("verify", timed[32:])
+    plain_ms = 0.0
+    for k, what in ((0, "step 0's W1"), (2, "step 0's W2"),
+                    (3, "step 1's T2")):
+        key, vec, point = records[k]
+        words = vec.arr.view(np.uint32).reshape(vec.n, 8)
+        plain, ms = plain_commit(key.curve, key.table(), words)
+        plain_ms += ms
+        check(plain == point, f"{what} commit differs from the plain version")
+    ms, bound_ms = sum(t[2] for t in timed), sum(t[3] for t in timed)
+    print(f"phase 9.3: the cycle fold's {len(timed)} commits' kernels "
+          f"{ms:.3f} ms in all, bound {bound_ms:.3f} ms "
+          f"({bound_ms / ms:.1%}); step 0's W1 and W2 and step 1's T2 "
+          f"equal the plain version on the card ({plain_ms:.1f} ms, host "
+          f"clock) ({time.perf_counter() - t0:.1f} s)")
+    return {"launches": 36, "ms": ms, "bound_ms": bound_ms,
+            "plain_ms": plain_ms, "pp": pp, "proof": proof,
+            "t_prove": t_prove, "t_setup": t_setup}
+
+
+SPARTAN_PHASES = ("matvecs", "sumcheck1", "mvec", "sumcheck2", "kzg_open",
+                  "ipa_open")
+
+
+def phase10(bound, pp, proof) -> dict:
+    """Compression on the card: compress_sn_cycle (HyperKZG's commits
+    through K6, the IPA's on the host), verify_compressed_sn_cycle, and
+    a compressed proof with one sumcheck value changed."""
+    from lurk_tpu_torch.msm import kernel as M
+    from lurk_tpu_torch.proof import prover_supernova_cycle as psc
+    from lurk_tpu_torch.utils import metrics
+
+    metrics.drain()
+    with CommitRecorder() as rec:
+        reset_counts()
+        t0 = time.perf_counter()
+        cp = psc.compress_sn_cycle(pp, proof)
+        torch.cuda.synchronize()
+        t_compress = time.perf_counter() - t0
+        by = dict(M.launches_by_curve)
+        records = list(rec.records)
+    big = [r for r in records if r[1].n >= 64]
+    check(set(by) == {"bn254-g1"} and by["bn254-g1"] == len(big),
+          f"MSM launches {by} in the compress, expected one a HyperKZG "
+          f"commit of 64 or more scalars ({len(big)}) and none on Grumpkin")
+    spans = {k: metrics.values(f"spartan.{k}") for k in SPARTAN_PHASES}
+    print(f"phase 10.1: compress_sn_cycle {t_compress:.1f} s; spartan "
+          + ", ".join(f"{k} " + "+".join(f"{v:.2f}" for v in vals)
+                      for k, vals in spans.items())
+          + f" s (one value a side, in the order they ended); {len(records)} "
+          f"HyperKZG commits, {len(big)} through K6")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    ok = psc.verify_compressed_sn_cycle(pp, cp)
+    t_verify = time.perf_counter() - t0
+    check(ok, "verify_compressed_sn_cycle rejects the compressed proof")
+    check(M.launches == 0, f"{M.launches} MSM launches in the verify")
+    good = cp.spartans1[0]
+    polys = [list(r) for r in good.sc1_polys]
+    polys[3][1] = (polys[3][1] + 1) % pp.field1.modulus
+    bad = dataclasses.replace(
+        cp, spartans1=[dataclasses.replace(good, sc1_polys=polys)])
+    check(not psc.verify_compressed_sn_cycle(pp, bad),
+          "verify accepts a compressed proof with a sumcheck value changed")
+    print(f"phase 10.2: verify_compressed_sn_cycle accepts ({t_verify:.1f} "
+          f"s, no MSM launch) and rejects the proof with one sumcheck "
+          f"value changed")
+    t0 = time.perf_counter()
+    timed = kernel_alone(bound, big)
+    print_classes("compress", timed)
+    ms, bound_ms = sum(t[2] for t in timed), sum(t[3] for t in timed)
+    print(f"phase 10.3: the compress's {len(timed)} K6 commits {ms:.3f} ms "
+          f"in all, bound {bound_ms:.3f} ms ({bound_ms / ms:.1%}) "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return {"launches": len(timed), "ms": ms, "bound_ms": bound_ms,
+            "t_compress": t_compress, "t_verify": t_verify}
 
 
 def imad_rate(sms: int):
@@ -1365,9 +1712,26 @@ def main() -> int:
 
     # ---- phase 8: the fold of fib(100), its commits through K6 ----
     fold = phase8(bound, store, frames)
-    for k in ("launches", "ms", "bound_ms", "plain_ms"):
-        msm[k] += fold[k]
-    msm["plain_of"] = "the 2^20 commit, step 0's W and T, step 1's T"
+
+    # ---- phase 9: the cycle fold of fib(100), BN254 and Grumpkin ----
+    cycle = phase9(bound, store, frames)
+
+    # ---- phase 10: compression and its verifier ----
+    comp = phase10(bound, cycle["pp"], cycle["proof"])
+    e2e = cycle["t_prove"] + comp["t_compress"] + comp["t_verify"]
+    print(f"fib(100) prove + compress + verify {e2e:.1f} s (prove "
+          f"{cycle['t_prove']:.1f}, its loading of the public parameters "
+          f"from the disk cache included, + compress "
+          f"{comp['t_compress']:.1f} + verify {comp['t_verify']:.1f}; the "
+          f"public parameters' cold build, before, {cycle['t_setup']:.1f} "
+          f"s), {len(frames) / e2e:.2f} frames/s")
+    for part in (fold, cycle, comp):
+        for k in ("launches", "ms", "bound_ms"):
+            msm[k] += part[k]
+    msm["plain_ms"] += fold["plain_ms"] + cycle["plain_ms"]
+    msm["plain_of"] = ("the 2^20 commit, step 0's W and T and step 1's T "
+                       "of the Nova fold, step 0's W1 and W2 and step 1's "
+                       "T2 of the cycle fold")
 
     print(json.dumps({"kernels": [sparse, dense, msm, folded]}))
     print(f"total {time.perf_counter() - t_all:.1f} s")

@@ -1,8 +1,9 @@
 // Host sparse R1CS kernels for the Nova fold: matvecs (Az, Bz, Cz),
 // cross-term computation, and relaxed/strict satisfiability checks.
 //
-// A copy of the JAX package's lurk_tpu/native/r1cs.cpp without its
-// Spartan entries (lurk_spartan_*), which wait for the port of Spartan.
+// A copy of the JAX package's lurk_tpu/native/r1cs.cpp, with its
+// Spartan entries (lurk_spartan_mvec, lurk_spartan_matrix_evals: the
+// compression's sparse products over the split-z domain).
 // Role parity: arecibo's r1cs.rs sparse ops (the reference's fold hot
 // loop outside the MSMs). Oracle: the JAX package's Python loops in
 // lurk_tpu/proof/nova.py (R1CSShape.matvecs, check_relaxed, cross_term,
@@ -271,6 +272,93 @@ void lurk_r1cs_cross_term_cached(long h, const u64* abc1_limbs,
             fe_sub(f, t_out[r], acc, c1v[r]);
         }
     });
+}
+
+// ---------------------------------------------------------------------------
+// Spartan compression helpers over a registered shape (proof/spartan.py):
+// the split-z column map sends j -> j (j < num_inputs) else
+// n_half + (j - num_inputs).
+// ---------------------------------------------------------------------------
+
+// m_vec = (A + r B + r^2 C)^T chi over the split-z domain; out plain
+// [2 * n_half].
+void lurk_spartan_mvec(long h, const u64* chi_limbs, const u64* r_limbs,
+                       u64 n_half, u64 num_inputs, u64* out_limbs) {
+    const Shape& s = *g_shapes[h];
+    const Field& f = s.f;
+    Fe r2;
+    std::memcpy(r2.v, f.r2, 32);
+    Fe rm;                              // mont(r)
+    {
+        Fe r;
+        std::memcpy(r.v, r_limbs, 32);
+        fe_mul(f, rm, r, r2);
+    }
+    const Fe* chi = (const Fe*)chi_limbs;
+    std::vector<Fe> acc(2 * n_half);    // plain accumulation
+    std::memset(acc.data(), 0, acc.size() * sizeof(Fe));
+    const Csr* mats[3] = {&s.a, &s.b, &s.c};
+    Fe t, w;
+    for (size_t row = 0; row < s.m; row++) {
+        Fe chim;
+        fe_mul(f, chim, chi[row], r2);          // mont(chi)
+        Fe wk = chim;                           // mont(chi * r^k)
+        for (int k = 0; k < 3; k++) {
+            const Csr& m = *mats[k];
+            for (u64 j = m.indptr[row]; j < m.indptr[row + 1]; j++) {
+                u64 col = m.idx[j];
+                u64 out_col = col < num_inputs
+                    ? col : n_half + (col - num_inputs);
+                // mont(w) * mont(val) = mont(w*val); one more unmont
+                // happens lazily: coef is mont, wk is mont ->
+                // fe_mul gives mont(w*val); multiply by ONE later.
+                fe_mul(f, t, wk, m.coef[j]);
+                fe_add(f, acc[out_col], acc[out_col], t);
+            }
+            if (k < 2) fe_mul(f, wk, wk, rm);
+        }
+    }
+    // unmont: multiply by plain 1
+    Fe one;
+    std::memset(&one, 0, sizeof(one));
+    one.v[0] = 1;
+    Fe* out = (Fe*)out_limbs;
+    for (size_t i = 0; i < 2 * n_half; i++)
+        fe_mul(f, out[i], acc[i], one);
+}
+
+// evals[k] = sum_i chi_rx[i] * sum_j M_k[i][j] * chi_ry[colmap(j)];
+// chi vectors plain; out plain [3].
+void lurk_spartan_matrix_evals(long h, const u64* chi_rx_limbs,
+                               const u64* chi_ry_limbs, u64 n_half,
+                               u64 num_inputs, u64* out_limbs) {
+    const Shape& s = *g_shapes[h];
+    const Field& f = s.f;
+    const Fe* chi_rx = (const Fe*)chi_rx_limbs;
+    const Fe* chi_ry = (const Fe*)chi_ry_limbs;
+    Fe r2;
+    std::memcpy(r2.v, f.r2, 32);
+    Fe evals[3];
+    std::memset(evals, 0, sizeof(evals));
+    const Csr* mats[3] = {&s.a, &s.b, &s.c};
+    Fe t, inner, rxm;
+    for (size_t row = 0; row < s.m; row++) {
+        fe_mul(f, rxm, chi_rx[row], r2);        // mont(chi_rx)
+        for (int k = 0; k < 3; k++) {
+            const Csr& m = *mats[k];
+            std::memset(&inner, 0, sizeof(inner));
+            for (u64 j = m.indptr[row]; j < m.indptr[row + 1]; j++) {
+                u64 col = m.idx[j];
+                u64 out_col = col < num_inputs
+                    ? col : n_half + (col - num_inputs);
+                fe_mul(f, t, m.coef[j], chi_ry[out_col]); // plain
+                fe_add(f, inner, inner, t);
+            }
+            fe_mul(f, t, rxm, inner);           // plain(chi_rx*inner)
+            fe_add(f, evals[k], evals[k], t);
+        }
+    }
+    std::memcpy(out_limbs, evals, sizeof(evals));
 }
 
 }   // extern "C"

@@ -1,9 +1,9 @@
 """ctypes wrapper for the host sparse R1CS kernels (``csrc/host/r1cs.cpp``).
 
-A copy of the JAX package's ``native/r1cs.py`` without its Spartan
-helpers (``matvecs_padded_pv``), which wait for the port of Spartan.
-It is the port's only route for the fold's matvecs, cross-term, relaxed
-check and witness folds: there is no Python path, and a failed build
+A copy of the JAX package's ``native/r1cs.py``. It is the port's only
+route for the fold's matvecs, cross-term, relaxed check and witness
+folds, and for the compression's padded matvecs
+(``matvecs_padded_pv``): there is no Python path, and a failed build
 raises. The oracle is the JAX package's Python loops (its
 ``proof/nova.py``), held in ``tests/test_torch_fold.py``.
 
@@ -194,6 +194,19 @@ def matvecs_pv(shape, z) -> PackedVec:
     out = np.zeros(3 * m * 4, dtype=np.uint64)
     _lib().lurk_r1cs_matvecs(h, zp.ctypes.data, _threads(), out.ctypes.data)
     return PackedVec(out, 3 * m, shape.p)
+
+
+def matvecs_padded_pv(shape, z, m_pad: int
+                      ) -> Tuple[PackedVec, PackedVec, PackedVec]:
+    """(Az, Bz, Cz) as three PackedVecs zero-padded to ``m_pad`` (the
+    compression's sumcheck input, with no int round-trip)."""
+    m = shape.num_constraints
+    out = matvecs_pv(shape, z).arr
+    pad = np.zeros(4 * (m_pad - m), dtype=np.uint64)
+    return tuple(
+        PackedVec(np.concatenate([out[4 * m * k:4 * m * (k + 1)], pad]),
+                  m_pad, shape.p)
+        for k in range(3))
 
 
 def matvecs(shape, z) -> Tuple[List[int], List[int], List[int]]:

@@ -8,7 +8,8 @@ numpy), :class:`MsmTable` (bases resident on a device, ``msm`` /
 byte layout (a JAX key's, for one) into a table.
 
 :func:`msm_words` is the wrapper of ``csrc/msm.cu``: on a CUDA table it
-launches the kernel (and counts the launch in :data:`launches`); on a
+launches the kernel (and counts the launch in :data:`launches`, and by
+curve name in :data:`launches_by_curve`); on a
 CPU table it runs :func:`msm_plain`, a double-and-add over all lanes at
 once with the same complete formulas on :mod:`..ops.field`, then a
 pairwise tree sum.
@@ -42,8 +43,10 @@ N_BUCKETS = 1 << (C_BITS - 1)
 PARAMS_WORDS = 32
 R = 1 << 256
 
-# CUDA kernel launches made by msm_words (plain runs are not counted).
+# CUDA kernel launches made by msm_words (plain runs are not counted),
+# in all and by the table's curve name.
 launches = 0
+launches_by_curve: Dict[str, int] = {}
 
 
 # ---------------------------------------------------------------------------
@@ -434,6 +437,8 @@ def _msm_cuda(table: MsmTable, words: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"msm kernel launch failed: CUDA error {err}")
     launches += 1
+    name = table.curve.name
+    launches_by_curve[name] = launches_by_curve.get(name, 0) + 1
     return out
 
 

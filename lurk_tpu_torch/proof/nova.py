@@ -19,7 +19,10 @@ Routes, one each and no fallback:
   Pippenger (:mod:`..hostlib.msm`, ``csrc/host/msm.cpp``), as the JAX
   package commits without a device; while :func:`prover_devices` names
   several devices, to a :class:`ShardedMsmTable` over them;
-- a smaller commit goes to the host ``Curve.pippenger``;
+- a smaller commit goes to the host Pippenger on either device (the
+  Python ``Curve.pippenger``, the JAX package's route there, runs its
+  whole bucket reduction at any size: ``scripts/torch_host_timings.py
+  --lanes 32`` times both);
 - points are added on the host (``fold_instance``).
 
 Step vectors stay packed (:class:`..hostlib.r1cs.PackedVec`): each
@@ -105,6 +108,7 @@ class CommitmentKey:
         self._table: Optional[MsmTable] = None
         self._sharded = None
         self._host_points: Optional[np.ndarray] = None
+        self._small_points: Optional[np.ndarray] = None
 
     @staticmethod
     def setup(curve: Curve, label: bytes, n: int,
@@ -141,6 +145,14 @@ class CommitmentKey:
             self._host_points = host_msm.pack_points(self.gens)
         return self._host_points
 
+    def small_points(self) -> np.ndarray:
+        """The first ``_DEVICE_COMMIT_THRESHOLD`` generators packed for
+        the host MSM (the route of short commits on every device)."""
+        if self._small_points is None:
+            self._small_points = host_msm.pack_points(
+                self.gens[:_DEVICE_COMMIT_THRESHOLD])
+        return self._small_points
+
     def _check(self, vec) -> int:
         n = len(vec)
         if n > len(self.gens):
@@ -158,7 +170,9 @@ class CommitmentKey:
         to the single table; returns a zero-argument resolver."""
         n = self._check(vec)
         if n < _DEVICE_COMMIT_THRESHOLD:
-            pt = self.curve.pippenger(list(vec), self.gens[:n])
+            pt = host_msm.msm(self.curve,
+                              PackedVec.pack(vec, self.curve.order).arr,
+                              self.small_points())
             return lambda: pt
         devices = sharding.prover_devices()
         if devices is not None:

@@ -1,7 +1,11 @@
 """Poseidon-based Fiat-Shamir random oracle for the folding scheme.
 
-A copy of the JAX package's ``proof/transcript.py`` over the port's
-host Poseidon (:func:`..poseidon.host.hash_preimage`).
+A copy of the JAX package's ``proof/transcript.py``, hashing through
+the host C++ Poseidon (:func:`..hostlib.poseidon.hash_batch`, one
+arity-4 hash per chunk): compression squeezes hundreds of times, and the
+Python permutation :func:`..poseidon.host.hash_preimage`, which the JAX
+transcript runs and which is the oracle here, is several times slower
+(``scripts/torch_host_timings.py --hashes N`` times both).
 
 Plays the role of arecibo's `PoseidonRO` (external crate): absorbs field
 elements and curve points, squeezes ~250-bit challenges. Uses our
@@ -20,7 +24,7 @@ from __future__ import annotations
 from typing import List
 
 from ..curves.weierstrass import Affine, Curve
-from ..poseidon.host import hash_preimage
+from ..hostlib.poseidon import hash_batch
 
 # 124 bits: small enough that an in-circuit nonnative product
 # challenge x 128-bit-limb (2^252) stays below every cycle modulus
@@ -67,7 +71,7 @@ class Transcript:
         while len(data) > 1:
             chunk = data[:4]
             chunk += [0] * (4 - len(chunk))
-            digest = hash_preimage(self.base, chunk)
+            digest = hash_batch(self.base, 4, [chunk])[0]
             data = [digest] + data[4:]
         self.state = data[0]
 

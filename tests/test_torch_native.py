@@ -95,6 +95,6 @@ def test_host_build_needs_gxx(build_dir, monkeypatch):
 def test_host_build_compiles_every_host_source(build_dir):
     times = native.build_host()
     assert sorted(times) == ["fastpack", "kernel_bodies", "msm", "pedersen",
-                            "poseidon", "r1cs", "srs"]
+                            "poseidon", "r1cs", "spartan", "srs"]
     assert all(native.host_library_path(n).exists() for n in times)
     assert native.build_host() == {}
