@@ -59,17 +59,21 @@ Phases, each fatal on failure:
      aux, frame 0 of fib(100) fully synthesized with every constraint
      checked, witness-only equal to full synthesis on the first 5 frames
      at rc = 5;
-  8. the fold, the main path from phase 2's hydrated fib(100):
+  8. the fold (the Nova IVC), on the first PHASE8_FRAMES frames of
+     phase 2's hydrated fib(100):
      NovaProver(rc=100, cuda).prove_from_frames -> the shape from step
-     0's full synthesis (its build timed) -> 8 steps of witness-only
-     synthesis, W packed once and committed through K6, the cross-term
-     T on the host C++ and committed through K6, the fold (16 MSM
-     launches, no Poseidon launch) -> NovaProver.verify (W and E
-     recommitted: 2 launches) accepts, and rejects the proof with one
-     entry of its final W changed; each step's phase times (host
-     clock), then each commit's kernel timed alone (CUDA events) with
-     its bound; step 0's W and T (all zero: it folds into the zero
-     accumulator) and step 1's T against the plain version on the card;
+     0's full synthesis (its build timed) -> a step a 100 frames of
+     witness-only synthesis, W packed once and committed through K6,
+     the cross-term T on the host C++ and committed through K6, the
+     fold (2 MSM launches a step, no Poseidon launch) ->
+     NovaProver.verify (W and E recommitted: 2 launches) accepts, and
+     rejects the proof with one entry of its final W changed; each
+     step's phase times (host clock), then each commit's kernel timed
+     alone (CUDA events) with its bound; the commits of PHASE8_PLAIN
+     against the plain version on the card; then spartan.compress
+     (HyperKZG's commits through K6) and verify_compressed with the IO
+     chain check accept, and reject a changed sumcheck value and a
+     dropped last step;
   9. the cycle fold, the reference's main path, on phase 2's store:
      sn_cycle_public_params(rc=100, cuda) built and timed (the primary
      circuit's full synthesis, its digest and save, the secondary's, the
@@ -90,7 +94,29 @@ Phases, each fatal on failure:
      phases' times (``spartan.*``), verify_compressed_sn_cycle (no MSM
      launch) accepts and rejects the proof with one sumcheck value
      changed; HyperKZG's K6 commits timed alone with their bounds; then
-     fib(100) prove + compress + verify s and frames/s.
+     fib(100) prove + compress + verify s and frames/s;
+  11. the Nova cycle (the JAX REPL's ``nova`` backend), on phase 2's
+     store: cycle_public_params(rc=100, cuda) built and timed (the
+     primary augmented circuit's full synthesis, its digest and save,
+     the secondary's, the BN254 2^21 and Grumpkin 2^15 keys), then
+     CycleNovaProver(rc=100, cuda).prove_from_frames with those objects:
+     8 steps, the step witnesses from the shared fork pool, 16 K6
+     launches on BN254 and 16 on Grumpkin, no Poseidon launch; each
+     step's phase times (``nova_cycle.*``);
+     verify (2 + 2 launches) accepts and rejects a changed entry of the
+     final W1; each commit's kernel timed alone, step 0's W2 against the
+     plain version; compress_cycle (HyperKZG through K6, the IPA on the
+     host) and verify_compressed_cycle accept, and reject a changed
+     sumcheck value;
+  12. NIVC (the JAX REPL's ``supernova`` backend), on phase 2's store:
+     SuperNovaProver(rc=100, Lang(), cuda).prove_from_frames, its
+     ``-nivc`` shape built and saved in the prove (timed apart), 7
+     witnesses inline, W and T of 8 steps through K6 (16 launches);
+     verify (2 launches) accepts and rejects a changed final witness
+     entry; each commit's kernel timed alone; compress and
+     verify_compressed accept, and reject a changed step input and a
+     proof with no Spartan proofs; a HyperKZG chain commit of 2^12
+     scalars against the plain version.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -172,6 +198,13 @@ W_LIKE_VALUES = 50_000         # fib(100)'s W: 49,161 distinct values
 W_TIMED = 3                    # timed launches per commit of the fold
 BENCH_TIMEOUT_S = 300
 STEP_RC = 100                  # fib(100)'s 800 frames in 8 folding steps
+# phase 8 (the Nova fold): the frames it folds, and the commits (index
+# in the prove's order: W, T of each step) held against the plain
+# version; cut from 800 frames and from step 0's W and T and step 1's T
+# to keep the whole script inside 900 s with phases 11-12
+# (the shape, and so each commit's width, is the same at 200 frames)
+PHASE8_FRAMES = 200
+PHASE8_PLAIN = ((3, "step 1's T"),)
 CHECK_RC = 5
 
 
@@ -297,51 +330,92 @@ class Bound:
         additions per bucket up to the highest occupied one for the
         running sums (the windows' doublings left out); bytes: the table, the scalars and the
         result once. Returns (ms, bound_by, the least width, its mixed
-        additions, the longest bucket run at K6's own 16-bit window)."""
-        from lurk_tpu_torch.msm.kernel import (
-            C_BITS, N_BUCKETS, digits_from_words)
-        longest = max(int(np.bincount(win, minlength=N_BUCKETS + 1)[1:]
-                          .max()) for win in
-                      digits_from_words(words, C_BITS)[0])
+        additions)."""
         ops, c, madds = least_msm_work(words)
         nbytes = table_rows * 64 + words.shape[0] * 32 + 96
-        return (*self._max(ops, nbytes), c, madds, longest)
+        return (*self._max(ops, nbytes), c, madds)
+
+
+def longest_bucket_run(words: np.ndarray) -> int:
+    """The longest bucket run of these scalar words at K6's own 16-bit
+    windows (host numpy)."""
+    from lurk_tpu_torch.msm.kernel import (
+        C_BITS, N_BUCKETS, digits_from_words)
+    return max(int(np.bincount(win, minlength=N_BUCKETS + 1)[1:].max())
+               for win in digits_from_words(words, C_BITS)[0])
 
 
 MSM_BOUND_MAX_C = 22
+
+
+def msm_digits(w: torch.Tensor, c: int) -> torch.Tensor:
+    """Every window's signed digit of width ``c`` (top window unsigned,
+    as K6's) of the scalars ``w`` (int64[n, 8] of 32-bit words), as
+    int64[windows, n]: every window at once, then the recoding's carries
+    window by window."""
+    n_win = -(-256 // c)
+    mask, half, full = (1 << c) - 1, 1 << (c - 1), 1 << c
+    bits = [win * c for win in range(n_win)]
+    lo = torch.tensor([b // 32 for b in bits], device=w.device)
+    sh = torch.tensor([b % 32 for b in bits], device=w.device)[:, None]
+    spans = torch.tensor([b % 32 + c > 32 and b // 32 + 1 < 8
+                          for b in bits], device=w.device)[:, None]
+    v = w[:, lo].T >> sh
+    hi = w[:, (lo + 1).clamp(max=7)].T << (32 - sh)
+    d = (torch.where(spans, v | hi, v) & mask).contiguous()
+    del v, hi
+    carry = torch.zeros(w.shape[0], dtype=torch.int64, device=w.device)
+    for win in range(n_win - 1):
+        dw = d[win] + carry
+        neg = dw > half
+        d[win] = torch.where(neg, full - dw, dw)
+        carry = neg.to(torch.int64)
+    d[n_win - 1] += carry
+    return d
 
 
 def least_msm_work(words: np.ndarray):
     """(IMAD count, width, mixed additions) of the cheapest signed-window
     bucket MSM of ``uint32[n, 8]`` scalar words over the widths 1 ..
     MSM_BOUND_MAX_C (top window unsigned, as K6's), counted on the card
-    with torch (no kernel of the port)."""
+    with torch (no kernel of the port). In each window one mixed
+    addition for each non-zero digit that is not the first of its
+    bucket, and 2 additions a bucket up to the highest occupied one. A
+    width whose lower bound (every non-zero digit but one a possible
+    bucket value) exceeds the work already found is not counted
+    exactly: it can be neither the least nor tie with it."""
     w = torch.from_numpy(np.ascontiguousarray(words).astype(np.int64)) \
         .to("cuda")
     n = w.shape[0]
+
+    def exact(c, d, sums):
+        bins = int(d.max()) + 1
+        offsets = torch.arange(d.shape[0], device="cuda")[:, None] * bins
+        sizes = torch.bincount((d + offsets).flatten(),
+                               minlength=d.shape[0] * bins) \
+            .view(-1, bins)[:, 1:]
+        madds = int(sizes.sum() - torch.count_nonzero(sizes))
+        return madds * MADD + 2 * sums * ADD, c, madds
+
+    # an upper bound first, at about the width a bucket MSM of n takes
+    c0 = min(max(n.bit_length() - 4, 1), MSM_BOUND_MAX_C)
+    d = msm_digits(w, c0)
+    first = exact(c0, d, int(d.max(dim=1).values.sum()))
     best = None
     for c in range(1, MSM_BOUND_MAX_C + 1):
-        n_win = -(-256 // c)
-        mask, half, full = (1 << c) - 1, 1 << (c - 1), 1 << c
-        carry = torch.zeros(n, dtype=torch.int64, device="cuda")
-        madds = sums = torch.zeros((), dtype=torch.int64, device="cuda")
-        for win in range(n_win):
-            i, sh = divmod(win * c, 32)
-            v = w[:, i] >> sh
-            if sh + c > 32 and i + 1 < 8:
-                v = v | (w[:, i + 1] << (32 - sh))
-            d = (v & mask) + carry
-            if win < n_win - 1:
-                neg = d > half
-                d = torch.where(neg, full - d, d)
-                carry = neg.to(torch.int64)
-            sizes = torch.bincount(d)[1:]
-            madds = madds + sizes.sum() - torch.count_nonzero(sizes)
-            sums = sums + d.max()
-        madds = int(madds)
-        ops = madds * MADD + 2 * int(sums) * ADD
-        if best is None or ops < best[0]:
-            best = (ops, c, madds)
+        if c == c0:
+            got = first
+        else:
+            d = msm_digits(w, c)
+            sums = int(d.max(dim=1).values.sum())
+            n_win, half = d.shape[0], 1 << (c - 1)
+            lower = (int(torch.count_nonzero(d)) - (n_win - 1) *
+                     min(half, n) - min(2 * half, n)) * MADD + 2 * sums * ADD
+            if lower > min(first[0], best[0] if best else first[0]):
+                continue
+            got = exact(c, d, sums)
+        if best is None or got[0] < best[0]:
+            best = got
     return best
 
 
@@ -574,7 +648,8 @@ def skewed(bound, rng, table, random_ms: float, check_plain: bool):
                   "MSM(s, ..., s) differs from s MSM(1, ..., 1) at 2^20")
         k_ms = out[label] = time_ms(lambda: M.msm_words(tab, w),
                                     TIMED_LAUNCHES)
-        b_ms, by, c, madds, longest = bound.msm(words, tab.n)
+        b_ms, by, c, madds = bound.msm(words, tab.n)
+        longest = longest_bucket_run(words)
         print(f"  K6 2^20 {label}: {k_ms:.3f} ms/launch ({k_ms / random_ms:.2f}"
               f"x the random vector's {random_ms:.3f} ms); bound {b_ms:.3f} "
               f"ms ({by}: {madds} mixed additions at {c}-bit windows), "
@@ -698,7 +773,8 @@ def phase4(bound, dev, devices):
         w = words_on(tab, words)
         k_ms = k_times[label] = time_ms(lambda: M.msm_words(tab, w),
                                         TIMED_LAUNCHES)
-        b_ms, by, c, madds, longest = bound.msm(words, tab.n)
+        b_ms, by, c, madds = bound.msm(words, tab.n)
+        longest = longest_bucket_run(words)
         print(f"  commit {label}: kernel {k_ms:.3f} ms/launch (CUDA events, "
               f"{TIMED_LAUNCHES} launches), whole commit {hs:.3f} s (host "
               f"clock: packing, kernel, affine); bound {b_ms:.3f} ms ({by}: "
@@ -1030,13 +1106,16 @@ def plain_commit(curve, table, words: np.ndarray):
 
 def phase8(bound, store, frames) -> dict:
     """The fold on the card: NovaProver(rc=100, cuda).prove_from_frames on
-    phase 2's hydrated fib(100), then NovaProver.verify, and a proof with
-    one entry of its final W changed; each commit's kernel then timed
-    alone. Returns the fold's K6 figures for the kernels line."""
+    ``frames`` of phase 2's hydrated fib(100), then NovaProver.verify, and
+    a proof with one entry of its final W changed; each commit's kernel
+    then timed alone; then spartan.compress and verify_compressed (the
+    JAX REPL's default-else backend). Returns the fold's K6 figures for
+    the kernels line."""
     from lurk_tpu_torch.hostlib.r1cs import PackedVec
     from lurk_tpu_torch.msm import kernel as M
     from lurk_tpu_torch.poseidon import kernel as K
-    from lurk_tpu_torch.proof import nova
+    from lurk_tpu_torch.proof import nova, spartan
+    from lurk_tpu_torch.proof.multiframe import io_chain_checker
     from lurk_tpu_torch.proof.prover import NovaProver
     from lurk_tpu_torch.utils import metrics
 
@@ -1054,8 +1133,8 @@ def phase8(bound, store, frames) -> dict:
         launches = M.launches
         poseidon = (K.launches, K.dense_launches, K.folded_launches)
         n_steps = len(proof.steps)
-        check(n_steps == len(frames) // STEP_RC == 8,
-              f"{n_steps} folding steps, expected 8")
+        check(n_steps == len(frames) // STEP_RC,
+              f"{n_steps} folding steps, expected {len(frames) // STEP_RC}")
         check(launches == 2 * n_steps, f"{launches} MSM launches in the "
               f"prove, expected {2 * n_steps} (W and T a step)")
         check(poseidon == (0, 0, 0), f"Poseidon launches {poseidon} in the "
@@ -1071,7 +1150,8 @@ def phase8(bound, store, frames) -> dict:
         check(len(times["shape"]) == 1, "the shape was not built (the "
               "parameter cache starts cold)")
         print(f"phase 8.1: NovaProver(rc={STEP_RC}, cuda).prove_from_frames("
-              f"fib(100)): {n_steps} steps in {t_prove:.1f} s; the shape "
+              f"fib(100)'s first {len(frames)} frames): {n_steps} steps in "
+              f"{t_prove:.1f} s; the shape "
               f"{shape.num_constraints} constraints, {shape.num_aux} aux, "
               f"{shape.num_inputs} inputs, built in {times['shape'][0]:.1f} s "
               f"(step 0's full synthesis and the shape digest) and saved "
@@ -1125,11 +1205,10 @@ def phase8(bound, store, frames) -> dict:
               f"{b_ms[2 * k]:.3f}), T {k_ms[2 * k + 1]:.3f} ms (bound "
               f"{b_ms[2 * k + 1]:.3f}) (CUDA events, {W_TIMED} launches)")
     print(f"  verify: K6 W {k_ms[-2]:.3f} ms, E {k_ms[-1]:.3f} ms")
-    # step 0's W and T against the plain version (T of step 0 folds into
-    # the zero accumulator and is all zero), and step 1's T, the first
-    # non-zero one
+    # commits against the plain version: step 1's T is the first
+    # non-zero one (T of step 0 folds into the zero accumulator)
     plain_ms = 0.0
-    for k, what in ((0, "step 0's W"), (1, "step 0's T"), (3, "step 1's T")):
+    for k, what in PHASE8_PLAIN:
         _, vec, point = commits[k]
         words = vec.arr.view(np.uint32).reshape(vec.n, 8)
         plain, ms = plain_commit(curve, table, words)
@@ -1139,12 +1218,25 @@ def phase8(bound, store, frames) -> dict:
           "step 0's T is not the identity or step 1's T is")
     ms, bound_ms = sum(k_ms), sum(b_ms)
     print(f"phase 8.3: the fold's {len(k_ms)} commits' kernels {ms:.3f} ms "
-          f"in all, bound {bound_ms:.3f} ms ({bound_ms / ms:.1%}); step 0's "
-          f"W and T and step 1's T equal the plain version on the card "
+          f"in all, bound {bound_ms:.3f} ms ({bound_ms / ms:.1%}); "
+          f"equal to the plain version on the card: "
+          f"{' and '.join(what for _, what in PHASE8_PLAIN)} "
           f"({plain_ms:.1f} ms, host clock) "
           f"({time.perf_counter() - t0:.1f} s)")
-    return {"launches": launches + verify_launches, "ms": ms,
-            "bound_ms": bound_ms, "plain_ms": plain_ms}
+
+    # the JAX REPL's other backend compresses this fold with Spartan
+    comp = compression(
+        ("8.4", "8.5", "8.6"), "spartan.compress", bound,
+        lambda: spartan.compress(pp, proof),
+        lambda cp: spartan.verify_compressed(
+            pp, cp, io_chain_checker(cp.z0, cp.zi)),
+        lambda cp: [("one sumcheck value changed", dataclasses.replace(
+            cp, spartan=changed_sumcheck(cp.spartan, pp.shape.p))),
+                    ("its last step dropped",
+                     dataclasses.replace(cp, steps=cp.steps[:-1]))])
+    return {"launches": launches + verify_launches + comp["launches"],
+            "ms": ms + comp["ms"], "bound_ms": bound_ms + comp["bound_ms"],
+            "plain_ms": plain_ms}
 
 
 def reset_counts() -> None:
@@ -1222,10 +1314,45 @@ def print_classes(what: str, timed) -> None:
               f"{ms:.3f} ms, bound {b:.3f} ms ({b / ms:.1%})")
 
 
-SN_PHASES = ("witness", "synthesize_primary", "pack_w1",
-             "commit_w1_dispatch", "cross_term1", "commit_t1",
-             "fold_witness1", "synthesize_secondary", "commit_w2",
-             "cross_term2", "commit_t2", "fold2")
+# the phases a cycle prover's step records, under supernova_cycle.* or
+# nova_cycle.*
+CYCLE_PHASES = ("witness", "synthesize_primary", "pack_w1",
+                "commit_w1_dispatch", "cross_term1", "commit_t1",
+                "fold_witness1", "synthesize_secondary", "commit_w2",
+                "cross_term2", "commit_t2", "fold2")
+
+
+def cycle_commits(s1, s2, n: int):
+    """(curve, width) of a cycle prove's commits in order: W1, T1 and W2
+    of each step, T2 of each step's pending instance from step 1 on and
+    of finish's."""
+    step = [("bn254-g1", s1.num_aux), ("bn254-g1", s1.num_constraints),
+            ("grumpkin", s2.num_aux)]
+    t2 = [("grumpkin", s2.num_constraints)]
+    return step + (t2 + step) * (n - 1) + t2
+
+
+def print_cycle_steps(times, n: int) -> None:
+    """A cycle prover's phase times (host clock), a line a step."""
+    for k in range(n):
+        sec = ("" if k == 0 else
+               f", secondary fold: cross-term "
+               f"{times['cross_term2'][k - 1]:.3f}, commit T2 "
+               f"{times['commit_t2'][k - 1]:.3f}, fold "
+               f"{times['fold2'][k - 1]:.3f}")
+        print(f"  step {k} (host clock, s): wait for the witness "
+              f"{times['witness'][k]:.3f}, synthesize primary "
+              f"{times['synthesize_primary'][k]:.3f}, pack W1 "
+              f"{times['pack_w1'][k]:.3f}, commit W1 dispatch "
+              f"{times['commit_w1_dispatch'][k]:.3f}, cross-term1 "
+              f"{times['cross_term1'][k]:.3f}, commit T1 (and wait "
+              f"for W1) {times['commit_t1'][k]:.3f}, fold W1 "
+              f"{times['fold_witness1'][k]:.3f}, synthesize secondary "
+              f"{times['synthesize_secondary'][k]:.3f}, commit W2 "
+              f"{times['commit_w2'][k]:.3f}{sec}")
+    print(f"  finish: cross-term2 {times['cross_term2'][-1]:.3f}, commit "
+          f"T2 {times['commit_t2'][-1]:.3f}, fold "
+          f"{times['fold2'][-1]:.3f} s")
 
 
 def phase9(bound, store, frames) -> dict:
@@ -1239,7 +1366,7 @@ def phase9(bound, store, frames) -> dict:
     from lurk_tpu_torch.msm import kernel as M
     from lurk_tpu_torch.poseidon import kernel as K
     from lurk_tpu_torch.proof import hyperkzg as hk
-    from lurk_tpu_torch.proof import nova
+    from lurk_tpu_torch.proof import nova, witness_pool
     from lurk_tpu_torch.proof import prover_supernova_cycle as psc
     from lurk_tpu_torch.utils import metrics
 
@@ -1257,8 +1384,9 @@ def phase9(bound, store, frames) -> dict:
           f"secondary {s2.num_constraints}, {s2.num_aux}; keys BN254 2^"
           f"{len(pp.ck1.gens).bit_length() - 1}, Grumpkin 2^"
           f"{len(pp.ck2.gens).bit_length() - 1}")
-    padded = prover.chunks(store, frames)
-    check(prover.uses_pool(len(padded)), "the fork pool is off")
+    jobs = prover.witness_jobs(store, prover.chunks(store, frames))
+    check(witness_pool.uses_pool(prover.check_steps, len(jobs)),
+          "the fork pool is off")
     # the timed prove loads its parameters as a new process would: the
     # shapes, generators and SRS from the disk cache, no object in memory
     digest = pp.pp_digest
@@ -1298,15 +1426,11 @@ def phase9(bound, store, frames) -> dict:
         check(poseidon == (0, 0, 0), f"Poseidon launches {poseidon} in the "
               "prove (the store was hydrated in phase 2)")
         check([(key.curve.name, vec.n) for key, vec, _ in rec.records] ==
-              [("bn254-g1", s1.num_aux), ("bn254-g1", s1.num_constraints),
-               ("grumpkin", s2.num_aux)]
-              + [("grumpkin", s2.num_constraints), ("bn254-g1", s1.num_aux),
-                 ("bn254-g1", s1.num_constraints), ("grumpkin", s2.num_aux)]
-              * 7 + [("grumpkin", s2.num_constraints)],
+              cycle_commits(s1, s2, proof.n),
               "the commits are not W1, T1 and W2 of each step and T2 of "
               "the pending instances")
         times = {k: metrics.values(f"supernova_cycle.{k}")
-                 for k in SN_PHASES}
+                 for k in CYCLE_PHASES}
         tables = metrics.values("ck.table")
         print(f"phase 9.1: SuperNovaCycleProver(rc={STEP_RC}, cuda)"
               f".prove_from_frames(fib(100)): {proof.n} steps in "
@@ -1316,27 +1440,9 @@ def phase9(bound, store, frames) -> dict:
               f"on the card in step 0's "
               f"commits: {' + '.join(f'{t:.2f}' for t in tables)} s), MSM "
               f"launches {by}, no Poseidon launch")
-        for k in range(proof.n):
-            sec = ("" if k == 0 else
-                   f", secondary fold: cross-term "
-                   f"{times['cross_term2'][k - 1]:.3f}, commit T2 "
-                   f"{times['commit_t2'][k - 1]:.3f}, fold "
-                   f"{times['fold2'][k - 1]:.3f}")
-            print(f"  step {k} (host clock, s): wait for the witness "
-                  f"{times['witness'][k]:.3f}, synthesize primary "
-                  f"{times['synthesize_primary'][k]:.3f}, pack W1 "
-                  f"{times['pack_w1'][k]:.3f}, commit W1 dispatch "
-                  f"{times['commit_w1_dispatch'][k]:.3f}, cross-term1 "
-                  f"{times['cross_term1'][k]:.3f}, commit T1 (and wait "
-                  f"for W1) {times['commit_t1'][k]:.3f}, fold W1 "
-                  f"{times['fold_witness1'][k]:.3f}, synthesize secondary "
-                  f"{times['synthesize_secondary'][k]:.3f}, commit W2 "
-                  f"{times['commit_w2'][k]:.3f}{sec}")
-        print(f"  finish: cross-term2 {times['cross_term2'][-1]:.3f}, commit "
-              f"T2 {times['commit_t2'][-1]:.3f}, fold "
-              f"{times['fold2'][-1]:.3f} s")
+        print_cycle_steps(times, proof.n)
         t0 = time.perf_counter()
-        psc.step_witness(pp, store, padded, 1)
+        witness_pool.step_witness(pp.field1, pp.cfg1s[0].step_fn, *jobs[1])
         t_inline = time.perf_counter() - t0
         print(f"  step 1's witness synthesized inline: {t_inline:.3f} s "
               f"(the pool's waits: {sum(times['witness']):.3f} s in all)")
@@ -1390,19 +1496,20 @@ SPARTAN_PHASES = ("matvecs", "sumcheck1", "mvec", "sumcheck2", "kzg_open",
                   "ipa_open")
 
 
-def phase10(bound, pp, proof) -> dict:
-    """Compression on the card: compress_sn_cycle (HyperKZG's commits
-    through K6, the IPA's on the host), verify_compressed_sn_cycle, and
-    a compressed proof with one sumcheck value changed."""
+def compression(labels, name: str, bound, compress, verify, bads) -> dict:
+    """A compression on the card: ``compress()`` (HyperKZG's commits
+    through K6 on BN254, the IPA's MSMs on the host), ``verify(cp)``
+    accepting with no MSM launch and rejecting each of ``bads(cp)``
+    (what, changed proof); HyperKZG's K6 commits then timed alone with
+    their bounds. Prints under the three phase ``labels``."""
     from lurk_tpu_torch.msm import kernel as M
-    from lurk_tpu_torch.proof import prover_supernova_cycle as psc
     from lurk_tpu_torch.utils import metrics
 
     metrics.drain()
     with CommitRecorder() as rec:
         reset_counts()
         t0 = time.perf_counter()
-        cp = psc.compress_sn_cycle(pp, proof)
+        cp = compress()
         torch.cuda.synchronize()
         t_compress = time.perf_counter() - t0
         by = dict(M.launches_by_curve)
@@ -1412,37 +1519,297 @@ def phase10(bound, pp, proof) -> dict:
           f"MSM launches {by} in the compress, expected one a HyperKZG "
           f"commit of 64 or more scalars ({len(big)}) and none on Grumpkin")
     spans = {k: metrics.values(f"spartan.{k}") for k in SPARTAN_PHASES}
-    print(f"phase 10.1: compress_sn_cycle {t_compress:.1f} s; spartan "
+    print(f"phase {labels[0]}: {name} {t_compress:.1f} s; spartan "
           + ", ".join(f"{k} " + "+".join(f"{v:.2f}" for v in vals)
-                      for k, vals in spans.items())
+                      for k, vals in spans.items() if vals)
           + f" s (one value a side, in the order they ended); {len(records)} "
           f"HyperKZG commits, {len(big)} through K6")
 
     reset_counts()
     t0 = time.perf_counter()
-    ok = psc.verify_compressed_sn_cycle(pp, cp)
+    ok = verify(cp)
     t_verify = time.perf_counter() - t0
-    check(ok, "verify_compressed_sn_cycle rejects the compressed proof")
+    check(ok, f"the verifier rejects {name}'s proof")
     check(M.launches == 0, f"{M.launches} MSM launches in the verify")
-    good = cp.spartans1[0]
-    polys = [list(r) for r in good.sc1_polys]
-    polys[3][1] = (polys[3][1] + 1) % pp.field1.modulus
-    bad = dataclasses.replace(
-        cp, spartans1=[dataclasses.replace(good, sc1_polys=polys)])
-    check(not psc.verify_compressed_sn_cycle(pp, bad),
-          "verify accepts a compressed proof with a sumcheck value changed")
-    print(f"phase 10.2: verify_compressed_sn_cycle accepts ({t_verify:.1f} "
-          f"s, no MSM launch) and rejects the proof with one sumcheck "
-          f"value changed")
+    rejected = []
+    for what, bad in bads(cp):
+        check(not verify(bad), f"the verifier accepts a compressed proof "
+              f"with {what}")
+        rejected.append(what)
+    print(f"phase {labels[1]}: the verifier accepts ({t_verify:.1f} s, no "
+          f"MSM launch) and rejects the proof with "
+          + " and with ".join(rejected))
     t0 = time.perf_counter()
     timed = kernel_alone(bound, big)
     print_classes("compress", timed)
     ms, bound_ms = sum(t[2] for t in timed), sum(t[3] for t in timed)
-    print(f"phase 10.3: the compress's {len(timed)} K6 commits {ms:.3f} ms "
-          f"in all, bound {bound_ms:.3f} ms ({bound_ms / ms:.1%}) "
-          f"({time.perf_counter() - t0:.1f} s)")
+    print(f"phase {labels[2]}: the compress's {len(timed)} K6 commits "
+          f"{ms:.3f} ms in all, bound {bound_ms:.3f} ms ({bound_ms / ms:.1%})"
+          f" ({time.perf_counter() - t0:.1f} s)")
     return {"launches": len(timed), "ms": ms, "bound_ms": bound_ms,
-            "t_compress": t_compress, "t_verify": t_verify}
+            "t_compress": t_compress, "t_verify": t_verify, "cp": cp,
+            "records": big}
+
+
+def changed_sumcheck(sp, p: int):
+    """Spartan proof ``sp`` with one value of its first sumcheck
+    changed."""
+    polys = [list(r) for r in sp.sc1_polys]
+    polys[3][1] = (polys[3][1] + 1) % p
+    return dataclasses.replace(sp, sc1_polys=polys)
+
+
+def phase10(bound, pp, proof) -> dict:
+    """Compression on the card: compress_sn_cycle (HyperKZG's commits
+    through K6, the IPA's on the host), verify_compressed_sn_cycle, and
+    a compressed proof with one sumcheck value changed."""
+    from lurk_tpu_torch.proof import prover_supernova_cycle as psc
+
+    return compression(
+        ("10.1", "10.2", "10.3"), "compress_sn_cycle", bound,
+        lambda: psc.compress_sn_cycle(pp, proof),
+        lambda cp: psc.verify_compressed_sn_cycle(pp, cp),
+        lambda cp: [("one sumcheck value changed", dataclasses.replace(
+            cp, spartans1=[changed_sumcheck(cp.spartans1[0],
+                                            pp.field1.modulus)]))])
+
+
+def phase11(bound, store, frames) -> dict:
+    """The Nova cycle on the card (the JAX REPL's ``nova`` backend):
+    cycle_public_params built and timed, CycleNovaProver(rc=100, cuda)
+    .prove_from_frames on phase 2's hydrated fib(100) with the objects
+    of the build, verify and a proof with one entry of its final W1
+    changed, compress_cycle and verify_compressed_cycle with a changed
+    sumcheck value; each commit's kernel timed alone, one Grumpkin W2
+    commit against the plain version."""
+    from lurk_tpu_torch.hostlib.r1cs import PackedVec
+    from lurk_tpu_torch.msm import kernel as M
+    from lurk_tpu_torch.poseidon import kernel as K
+    from lurk_tpu_torch.proof import nova, witness_pool
+    from lurk_tpu_torch.proof import prover_cycle as pcy
+    from lurk_tpu_torch.proof.multiframe import MultiFrame
+    from lurk_tpu_torch.utils import metrics
+
+    prover = pcy.CycleNovaProver(rc=STEP_RC, device="cuda")
+    step = prover.step_func()
+    metrics.drain()
+    t0 = time.perf_counter()
+    pp = pcy.cycle_public_params(store, STEP_RC, step, device="cuda")
+    t_setup = time.perf_counter() - t0
+    s1, s2 = pp.shape1, pp.shape2
+    print(f"phase 11.0: the Nova cycle's public parameters at rc={STEP_RC} "
+          f"in {t_setup:.1f} s (cold cache: the primary augmented "
+          f"circuit's full synthesis, its digest and save; the "
+          f"secondary's; the keys): primary {s1.num_constraints} "
+          f"constraints, {s1.num_aux} aux; secondary {s2.num_constraints}, "
+          f"{s2.num_aux}; keys BN254 2^{len(pp.ck1.gens).bit_length() - 1}, "
+          f"Grumpkin 2^{len(pp.ck2.gens).bit_length() - 1}")
+    mframes = MultiFrame.from_frames(frames, STEP_RC, step, store)
+    check(witness_pool.uses_pool(prover.check_steps, len(mframes)),
+          "the fork pool is off")
+    with CommitRecorder() as rec:
+        reset_counts()
+        t0 = time.perf_counter()
+        pp2, proof = prover.prove_from_frames(store, frames)
+        torch.cuda.synchronize()
+        t_prove = time.perf_counter() - t0
+        by = dict(M.launches_by_curve)
+        poseidon = (K.launches, K.dense_launches, K.folded_launches)
+        check(pp2 is pp, "the prove built other public parameters")
+        check(proof.n == len(frames) // STEP_RC == 8,
+              f"{proof.n} folding steps, expected 8")
+        check(by == {"bn254-g1": 16, "grumpkin": 16},
+              f"MSM launches by curve {by} in the prove, expected 16 + 16 "
+              f"(W1 and T1 of 8 steps; W2 of 8, T2 of steps 1-7 and "
+              f"finish's)")
+        check(poseidon == (0, 0, 0), f"Poseidon launches {poseidon} in the "
+              "prove (the store was hydrated in phase 2)")
+        check([(key.curve.name, vec.n) for key, vec, _ in rec.records] ==
+              cycle_commits(s1, s2, proof.n),
+              "the commits are not W1, T1 and W2 of each step and T2 of "
+              "the pending instances")
+        times = {k: metrics.values(f"nova_cycle.{k}") for k in CYCLE_PHASES}
+        tables = metrics.values("ck.table")
+        print(f"phase 11.1: CycleNovaProver(rc={STEP_RC}, cuda)"
+              f".prove_from_frames(fib(100)): {proof.n} steps in "
+              f"{t_prove:.1f} s (the public parameters of 11.0 reused; "
+              f"fork pool of {min(8, os.cpu_count() - 1)} workers; the "
+              f"keys' tables built on the card in step 0's commits: "
+              f"{' + '.join(f'{t:.2f}' for t in tables)} s), MSM launches "
+              f"{by}, no Poseidon launch")
+        print_cycle_steps(times, proof.n)
+        print(f"  the pool's waits: {sum(times['witness']):.3f} s in all")
+
+        reset_counts()
+        t0 = time.perf_counter()
+        ok = prover.verify(pp, proof)
+        torch.cuda.synchronize()
+        t_verify = time.perf_counter() - t0
+        vby = dict(M.launches_by_curve)
+        check(ok, "CycleNovaProver.verify rejects the fold's proof")
+        check(vby == {"bn254-g1": 2, "grumpkin": 2}, f"MSM launches "
+              f"{vby} in the verify, expected 2 + 2 (W and E a curve)")
+        w = proof.w1.w
+        bad_w = PackedVec(w.arr.copy(), w.n, w.p)
+        bad_w[w.n // 2] = (bad_w[w.n // 2] + 1) % w.p
+        bad = dataclasses.replace(
+            proof, w1=nova.RelaxedWitness(bad_w, proof.w1.e))
+        check(not prover.verify(pp, bad),
+              "verify accepts a proof whose final W1 was changed")
+        records = list(rec.records)
+    print(f"phase 11.2: verify accepts ({t_verify:.1f} s, MSM launches "
+          f"{vby}) and rejects the proof with one entry of its final W1 "
+          f"changed")
+
+    t0 = time.perf_counter()
+    timed = kernel_alone(bound, records)
+    check(len(timed) == 36, f"{len(timed)} commits timed, expected 36")
+    print_classes("prove", timed[:32])
+    print_classes("verify", timed[32:])
+    key, vec, point = records[2]
+    plain, plain_ms = plain_commit(
+        key.curve, key.table(), vec.arr.view(np.uint32).reshape(vec.n, 8))
+    check(plain == point, "step 0's W2 commit differs from the plain version")
+    ms, bound_ms = sum(t[2] for t in timed), sum(t[3] for t in timed)
+    print(f"phase 11.3: the Nova cycle's {len(timed)} commits' kernels "
+          f"{ms:.3f} ms in all, bound {bound_ms:.3f} ms "
+          f"({bound_ms / ms:.1%}); step 0's W2 ({vec.n} scalars, Grumpkin) "
+          f"equals the plain version on the card ({plain_ms:.1f} ms, host "
+          f"clock) ({time.perf_counter() - t0:.1f} s)")
+
+    comp = compression(
+        ("11.4", "11.5", "11.6"), "compress_cycle", bound,
+        lambda: pcy.compress_cycle(pp, proof),
+        lambda cp: pcy.verify_compressed_cycle(pp, cp),
+        lambda cp: [("one sumcheck value changed", dataclasses.replace(
+            cp, spartan1=changed_sumcheck(cp.spartan1, pp.field1.modulus)))])
+    return {"launches": 36 + comp["launches"], "ms": ms + comp["ms"],
+            "bound_ms": bound_ms + comp["bound_ms"], "plain_ms": plain_ms,
+            "t_setup": t_setup, "t_prove": t_prove,
+            "t_compress": comp["t_compress"],
+            "t_verify": comp["t_verify"]}
+
+
+def phase12(bound, store, frames) -> dict:
+    """NIVC on the card (the JAX REPL's ``supernova`` backend):
+    SuperNovaProver(rc=100, Lang(), cuda).prove_from_frames on phase 2's
+    hydrated fib(100), its ``-nivc`` shape built and saved in the prove;
+    verify and a proof with one final witness entry changed; compress
+    and verify_compressed with a changed step input and with no Spartan
+    proofs; each commit's kernel timed alone, one HyperKZG chain commit
+    of 2^12 scalars or fewer against the plain version."""
+    from lurk_tpu_torch.hostlib.r1cs import PackedVec
+    from lurk_tpu_torch.lem.evaluation import Lang
+    from lurk_tpu_torch.msm import kernel as M
+    from lurk_tpu_torch.poseidon import kernel as K
+    from lurk_tpu_torch.proof import nova
+    from lurk_tpu_torch.proof import supernova as sn
+    from lurk_tpu_torch.utils import metrics
+
+    prover = sn.SuperNovaProver(rc=STEP_RC, lang=Lang(), device="cuda")
+    metrics.drain()
+    with CommitRecorder() as rec:
+        reset_counts()
+        t0 = time.perf_counter()
+        pp, proof = prover.prove_from_frames(store, frames)
+        torch.cuda.synchronize()
+        t_prove = time.perf_counter() - t0
+        by = dict(M.launches_by_curve)
+        poseidon = (K.launches, K.dense_launches, K.folded_launches)
+        n_steps = len(proof.steps)
+        shape = pp.shapes[0]
+        check(n_steps == len(frames) // STEP_RC == 8,
+              f"{n_steps} folding steps, expected 8")
+        check(by == {"bn254-g1": 2 * n_steps}, f"MSM launches {by} in the "
+              f"prove, expected {2 * n_steps} on BN254 (W and T a step)")
+        check(poseidon == (0, 0, 0), f"Poseidon launches {poseidon} in the "
+              "prove (the store was hydrated in phase 2)")
+        check([vec.n for _, vec, _ in rec.records] ==
+              [shape.num_aux, shape.num_constraints] * n_steps,
+              "the commits are not W and T of each step")
+        times = {k: metrics.values(k) for k in
+                 ("supernova.shape", "supernova.shape_save",
+                  "supernova.witness", "nova.pack", "nova.commit_w",
+                  "nova.cross_term", "nova.commit_t", "nova.fold",
+                  "ck.table")}
+        check(len(times["supernova.shape"]) == 1, "the -nivc shape was not "
+              "built (the parameter cache starts cold)")
+        print(f"phase 12.1: SuperNovaProver(rc={STEP_RC}, Lang(), cuda)"
+              f".prove_from_frames(fib(100)): {n_steps} steps in "
+              f"{t_prove:.1f} s; the -nivc shape {shape.num_constraints} "
+              f"constraints, {shape.num_aux} aux, built in "
+              f"{times['supernova.shape'][0]:.1f} s (step 0's full "
+              f"synthesis and the digest) and saved in "
+              f"{times['supernova.shape_save'][0]:.1f} s; key 2^"
+              f"{len(pp.ck.gens).bit_length() - 1}, its table on the card "
+              f"{sum(times['ck.table']):.1f} s (in step 0's commit of W); "
+              f"MSM launches {by}, no Poseidon launch")
+        for k in range(n_steps):
+            wit = (f"{times['supernova.witness'][k - 1]:.3f}" if k else
+                   "(full synthesis, in the shape)")
+            print(f"  step {k} (host clock, s): witness inline {wit}, pack "
+                  f"{times['nova.pack'][k]:.4f}, commit W "
+                  f"{times['nova.commit_w'][k]:.3f}, cross-term "
+                  f"{times['nova.cross_term'][k]:.3f}, commit T "
+                  f"{times['nova.commit_t'][k]:.3f}, fold "
+                  f"{times['nova.fold'][k]:.3f}")
+
+        reset_counts()
+        t0 = time.perf_counter()
+        ok = sn.verify(pp, proof)
+        torch.cuda.synchronize()
+        t_verify = time.perf_counter() - t0
+        vby = dict(M.launches_by_curve)
+        check(ok, "supernova.verify rejects the NIVC proof")
+        check(vby == {"bn254-g1": 2}, f"MSM launches {vby} in the verify, "
+              f"expected 2 (W and E of the one circuit)")
+        wit = proof.final_witnesses[0]
+        bad_w = PackedVec(wit.w.arr.copy(), wit.w.n, wit.w.p)
+        bad_w[wit.w.n // 2] = (bad_w[wit.w.n // 2] + 1) % wit.w.p
+        bad = dataclasses.replace(
+            proof, final_witnesses={0: nova.RelaxedWitness(bad_w, wit.e)})
+        check(not sn.verify(pp, bad),
+              "verify accepts a proof whose final witness was changed")
+        records = list(rec.records)
+    print(f"phase 12.2: verify accepts ({t_verify:.1f} s, MSM launches "
+          f"{vby}) and rejects the proof with one final witness entry "
+          f"changed")
+    t0 = time.perf_counter()
+    timed = kernel_alone(bound, records)
+    check(len(timed) == 2 * n_steps + 2,
+          f"{len(timed)} commits timed, expected {2 * n_steps + 2}")
+    print_classes("prove", timed[:2 * n_steps])
+    print_classes("verify", timed[2 * n_steps:])
+    ms, bound_ms = sum(t[2] for t in timed), sum(t[3] for t in timed)
+    print(f"phase 12.3: NIVC's {len(timed)} commits' kernels {ms:.3f} ms in "
+          f"all, bound {bound_ms:.3f} ms ({bound_ms / ms:.1%}) "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    def bads(cp):
+        pc, inst, comm_t = cp.steps[0]
+        x = list(inst.x)
+        x[0] = (x[0] + 1) % shape.p
+        steps = [(pc, nova.R1CSInstance(inst.comm_w, x), comm_t)]
+        return [("a changed step input",
+                 dataclasses.replace(cp, steps=steps + cp.steps[1:])),
+                ("no Spartan proofs", dataclasses.replace(cp, spartans={}))]
+
+    comp = compression(("12.4", "12.5", "12.6"), "supernova.compress", bound,
+                       lambda: sn.compress(pp, proof),
+                       lambda cp: sn.verify_compressed(pp, cp), bads)
+    key, vec, point = max((r for r in comp["records"] if r[1].n <= 1 << 12),
+                          key=lambda r: r[1].n)
+    plain, plain_ms = plain_commit(
+        key.curve, key.table(), vec.arr.view(np.uint32).reshape(vec.n, 8))
+    check(plain == point, "a HyperKZG chain commit differs from the plain "
+          "version")
+    print(f"phase 12.7: the HyperKZG chain commit of {vec.n} scalars equals "
+          f"the plain version on the card ({plain_ms:.1f} ms, host clock)")
+    return {"launches": len(timed) + comp["launches"],
+            "ms": ms + comp["ms"], "bound_ms": bound_ms + comp["bound_ms"],
+            "plain_ms": plain_ms, "t_prove": t_prove,
+            "t_compress": comp["t_compress"],
+            "t_verify": comp["t_verify"]}
 
 
 def imad_rate(sms: int):
@@ -1557,6 +1924,10 @@ def build_and_probe():
           f"of it; {IMAD_PER_CLK_PER_SM}/clk/SM at {load_clock:.0f} MHz is "
           f"{at_load:.4e}, {rate / at_load:.1%} of that")
     return smi, bound, shape_builds
+
+
+def elapsed(phases: str, t_all: float) -> None:
+    print(f"-- phase {phases} done at {time.perf_counter() - t_all:.1f} s")
 
 
 def main() -> int:
@@ -1687,6 +2058,7 @@ def main() -> int:
             p_ms = time_ms(lambda: K.poseidon_hash_plain(field, 4, x), 1)
             line += f"; plain {p_ms:.0f} ms"
         print(line)
+    elapsed("0-3", t_all)
     sparse = {
         "name": "poseidon_sparse", "route": "cuda",
         "source": "lurk_tpu_torch/csrc/poseidon.cu",
@@ -1700,24 +2072,31 @@ def main() -> int:
     # ---- phase 4: K6 ----
     shard_devices = [torch.device("cuda", 0)] * 2
     msm = phase4(bound, dev, shard_devices)
+    elapsed("4", t_all)
 
     # ---- phase 5: K2 ----
     dense = phase5(bound, gen, dev, host, shard_devices)
+    elapsed("5", t_all)
 
     # ---- phase 6: the folded Poseidon and the bench ----
     folded = phase6(bound, gen, dev)
+    elapsed("6", t_all)
 
     # ---- phase 7: the step circuit ----
     phase7(store, frames)
+    elapsed("7", t_all)
 
     # ---- phase 8: the fold of fib(100), its commits through K6 ----
-    fold = phase8(bound, store, frames)
+    fold = phase8(bound, store, frames[:PHASE8_FRAMES])
+    elapsed("8", t_all)
 
     # ---- phase 9: the cycle fold of fib(100), BN254 and Grumpkin ----
     cycle = phase9(bound, store, frames)
+    elapsed("9", t_all)
 
     # ---- phase 10: compression and its verifier ----
-    comp = phase10(bound, cycle["pp"], cycle["proof"])
+    comp = phase10(bound, cycle.pop("pp"), cycle.pop("proof"))
+    elapsed("10", t_all)
     e2e = cycle["t_prove"] + comp["t_compress"] + comp["t_verify"]
     print(f"fib(100) prove + compress + verify {e2e:.1f} s (prove "
           f"{cycle['t_prove']:.1f}, its loading of the public parameters "
@@ -1725,13 +2104,29 @@ def main() -> int:
           f"{comp['t_compress']:.1f} + verify {comp['t_verify']:.1f}; the "
           f"public parameters' cold build, before, {cycle['t_setup']:.1f} "
           f"s), {len(frames) / e2e:.2f} frames/s")
-    for part in (fold, cycle, comp):
+
+    # ---- phase 11: the Nova cycle, its compression and verifiers ----
+    nova_cycle = phase11(bound, store, frames)
+    elapsed("11", t_all)
+
+    # ---- phase 12: NIVC, its compression and verifiers ----
+    nivc = phase12(bound, store, frames)
+    elapsed("12", t_all)
+    for name, part in (("the Nova cycle", nova_cycle), ("NIVC", nivc)):
+        print(f"fib(100) through {name}: prove {part['t_prove']:.1f} s + "
+              f"compress {part['t_compress']:.1f} s + verify "
+              f"{part['t_verify']:.1f} s")
+
+    for part in (fold, cycle, comp, nova_cycle, nivc):
         for k in ("launches", "ms", "bound_ms"):
             msm[k] += part[k]
-    msm["plain_ms"] += fold["plain_ms"] + cycle["plain_ms"]
-    msm["plain_of"] = ("the 2^20 commit, step 0's W and T and step 1's T "
-                       "of the Nova fold, step 0's W1 and W2 and step 1's "
-                       "T2 of the cycle fold")
+    for part in (fold, cycle, nova_cycle, nivc):
+        msm["plain_ms"] += part["plain_ms"]
+    msm["plain_of"] = (f"the 2^20 commit, "
+                       f"{' and '.join(w for _, w in PHASE8_PLAIN)} of the "
+                       f"Nova fold, step 0's W1 and W2 and step 1's T2 of "
+                       f"the cycle fold, step 0's W2 of the Nova cycle, a "
+                       f"2^12 HyperKZG commit of NIVC's compress")
 
     print(json.dumps({"kernels": [sparse, dense, msm, folded]}))
     print(f"total {time.perf_counter() - t_all:.1f} s")

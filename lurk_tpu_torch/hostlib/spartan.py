@@ -186,9 +186,9 @@ def mle_eval(vec, rs: Sequence[int], p: int) -> int:
     arr = to_mont(vec, p)
     half = arr.size // 8
     for r in rs:
+        r_arr = _scalar(r, p)
         lib.lurk_sc_bind(mod.ctypes.data, rsq.ctypes.data, half,
-                         arr.ctypes.data, _scalar(r, p).ctypes.data,
-                         _threads())
+                         arr.ctypes.data, r_arr.ctypes.data, _threads())
         half //= 2
     return from_mont(arr, 1, p)[0]
 
@@ -198,9 +198,9 @@ def bind_eo(pv: PackedVec, x: int) -> PackedVec:
     array; returns the halved vector as a copy."""
     mod, rsq = _mod_r2(pv.p)
     half = pv.n // 2
+    x_arr = _scalar(x, pv.p)
     _lib().lurk_bind_eo(mod.ctypes.data, rsq.ctypes.data, half,
-                        pv.arr.ctypes.data, _scalar(x, pv.p).ctypes.data,
-                        _threads())
+                        pv.arr.ctypes.data, x_arr.ctypes.data, _threads())
     return PackedVec(pv.arr[:4 * half].copy(), half, pv.p)
 
 
@@ -208,8 +208,9 @@ def poly_eval(pv: PackedVec, z: int) -> int:
     """Horner evaluation of the coefficient vector ``pv`` at ``z``."""
     mod, rsq = _mod_r2(pv.p)
     out = np.empty(4, dtype=np.uint64)
+    z_arr = _scalar(z, pv.p)
     _lib().lurk_poly_eval(mod.ctypes.data, rsq.ctypes.data, pv.n,
-                          pv.arr.ctypes.data, _scalar(z, pv.p).ctypes.data,
+                          pv.arr.ctypes.data, z_arr.ctypes.data,
                           out.ctypes.data)
     return unpack_ints(out, 1)[0]
 
@@ -219,7 +220,8 @@ def poly_quotient(pv: PackedVec, z: int) -> PackedVec:
     coefficients."""
     mod, rsq = _mod_r2(pv.p)
     out = np.zeros(4 * (pv.n - 1), dtype=np.uint64)
+    z_arr = _scalar(z, pv.p)
     _lib().lurk_poly_quotient(mod.ctypes.data, rsq.ctypes.data, pv.n,
-                              pv.arr.ctypes.data,
-                              _scalar(z, pv.p).ctypes.data, out.ctypes.data)
+                              pv.arr.ctypes.data, z_arr.ctypes.data,
+                              out.ctypes.data)
     return PackedVec(out, pv.n - 1, pv.p)

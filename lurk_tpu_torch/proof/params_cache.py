@@ -109,6 +109,7 @@ def save_shape(key: str, shape) -> None:
     """The shape's CSR arrays (:meth:`..proof.nova.R1CSShape.csr`),
     counts and digest, as the JAX package lays them out."""
     import io
+    import zipfile
     arrays = {}
     for name, (indptr, idx, coef) in zip("abc", shape.csr()):
         arrays[f"{name}_indptr"] = indptr.astype(np.int64)
@@ -117,9 +118,15 @@ def save_shape(key: str, shape) -> None:
     arrays["meta"] = np.asarray(
         [shape.num_inputs, shape.num_aux, shape.num_constraints],
         dtype=np.int64)
+    arrays["digest"] = np.frombuffer(shape.digest.encode(), dtype=np.uint8)
+    # np.savez_compressed's layout, deflated at level 1: about twice as
+    # fast as its default level, for about a tenth more space
     buf = io.BytesIO()
-    np.savez_compressed(buf, digest=np.frombuffer(
-        shape.digest.encode(), dtype=np.uint8), **arrays)
+    with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED,
+                         compresslevel=1) as zf:
+        for name, arr in arrays.items():
+            with zf.open(f"{name}.npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, arr, allow_pickle=False)
     _atomic_write(_shape_path(key), buf.getvalue())
 
 

@@ -10,14 +10,10 @@ Spartan over every final accumulator) and its verifier. Reference
 functionality: reference src/proof/supernova.rs:200-318 via arecibo.
 
 Both curves commit on ``device`` (default ``cuda``). Step witnesses
-are accumulator-independent, so while ``check_steps`` is off and there
-are at least 3 chunks, a fork pool synthesizes them while the parent
-folds (the JAX package's default). The store is hydrated before
-the fork, so a worker touches no CUDA tensor (it would raise: CUDA
-cannot start again in a forked child) and no torch op; a worker's
-exception, or a worker's death, fails the prove. The time the parent
-waits for each step's witness goes to :mod:`..utils.metrics` as
-``supernova_cycle.witness``.
+come from the fork pool of :mod:`.witness_pool` while ``check_steps``
+is off and there are at least 3 chunks (the JAX package's default). The
+time the parent waits for each step's witness goes to
+:mod:`..utils.metrics` as ``supernova_cycle.witness``.
 
 Only the empty ``Lang`` (the main path) is ported: a ``Lang`` with
 coprocessors raises ``NotImplementedError`` until ``coproc/`` is
@@ -28,29 +24,24 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-import multiprocessing
-from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
-import numpy as np
-
 from ..device import resolve_device
-from ..hostlib.fastpack import pack_ints, unpack_ints
 from ..lem import evaluation as ev
 from ..lem import ir
 from ..lem.eval_step import make_eval_step
 from ..lem.interpreter import Frame
-from ..r1cs.cs import ConstraintSystem
 from ..r1cs.gadgets import alloc_num
 from ..store.core import Ptr, Store
 from ..utils import metrics
 from ..utils.tracing import instrument
-from . import spartan
+from . import spartan, witness_pool
 from .multiframe import io_scalars, pad_frames
-from .nova import PublicParams, fold_instance
-from .nova_cycle import cycle_fold_challenge
+from .nova import PublicParams
+from .nova_cycle import fold_pending
 from .params_cache import shape_cache_key
-from .supernova import chunk_frames_nivc
+from .supernova import chunk_frames_nivc, no_coprocessors
 from .supernova_cycle import (
     SnCycleProof, SnCyclePublicParams, SnCycleSNARK, sn_state1, sn_state2,
 )
@@ -83,20 +74,13 @@ def _chunk_step_fn(func: ir.Func, cproc_synthesizers: Optional[Dict] = None):
 _PP_CACHE: Dict[tuple, SnCyclePublicParams] = {}
 
 
-def _no_coprocessors(lang: Optional[ev.Lang]) -> None:
-    if lang is not None and len(lang):
-        raise NotImplementedError(
-            "a Lang with coprocessors needs coproc/, which is not ported "
-            "yet (ROADMAP.md, section 1, item 8)")
-
-
 def sn_cycle_public_params(store: Store, rc: int, lurk_step: ir.Func,
                            cprocs: List[ir.Func],
                            lang: Optional[ev.Lang] = None,
                            device=None) -> SnCyclePublicParams:
     """The public parameters of the empty ``Lang`` at ``rc``, with keys
     on ``device``; cached per process, the shapes on disk."""
-    _no_coprocessors(lang)
+    no_coprocessors(lang)
     dev = resolve_device(device)
     lang_key = ()
     key = (store.field.name, rc, lang_key, dev)
@@ -130,12 +114,12 @@ class SuperNovaCycleProver:
     device: Optional[str] = None
 
     def setup_funcs(self) -> Tuple[ir.Func, List[ir.Func]]:
-        _no_coprocessors(self.lang)
+        no_coprocessors(self.lang)
         return make_eval_step((), False), []
 
     def evaluate_and_prove(self, store: Store, expr: Ptr,
                            limit: int = 10000):
-        _no_coprocessors(self.lang)
+        no_coprocessors(self.lang)
         frames = ev.evaluate(None, expr, store, limit)
         pp, proof = self.prove_from_frames(store, frames)
         return pp, proof, frames
@@ -162,45 +146,30 @@ class SuperNovaCycleProver:
         padded = self.chunks(store, frames)
         pp = sn_cycle_public_params(store, self.rc, lurk_step, cprocs,
                                     self.lang, self.device)
-        snark = SnCycleSNARK(pp, io_scalars(store, padded[0][0].input))
-        caches = self._step_witness_caches(pp, padded, store)
-        for k, chunk in enumerate(padded):
+        jobs = self.witness_jobs(store, padded)
+        snark = SnCycleSNARK(pp, jobs[0][0])
+        # one primary circuit: a Lang with coprocessors raises
+        caches = witness_pool.step_witnesses(store, pp.cfg1s[0].step_fn,
+                                             jobs, self.check_steps)
+        for (_, aux), chunk in zip(jobs, padded):
             with metrics.timed("supernova_cycle.witness"):
                 cache = next(caches)
-            pc = chunk[0].pc
-            next_pc = padded[k + 1][0].pc if k + 1 < len(padded) else 0
-            z_next = io_scalars(store, chunk[-1].output)
-            snark.prove_step(pc, z_next, next_pc,
-                             step_aux=(chunk, next_pc, store),
-                             check=self.check_steps, step_cache=cache)
+            if cache is not None:
+                seg, (outs, pc_next) = cache
+                cache = (seg, outs, pc_next)
+            snark.prove_step(chunk[0].pc, io_scalars(store, chunk[-1].output),
+                             aux[1], step_aux=aux, check=self.check_steps,
+                             step_cache=cache)
         return pp, snark.finish()
 
-    def uses_pool(self, n_chunks: int) -> bool:
-        return not self.check_steps and n_chunks >= 3
-
-    def _step_witness_caches(self, pp, padded, store):
-        """Witness-gen ∥ folding for NIVC (reference
-        src/proof/supernova.rs:248-285): per-chunk step witnesses are
-        accumulator-independent; a fork pool computes (aux segment,
-        z_next, pc_next) triples while the main process folds. Without
-        the pool, each step synthesizes its witness inline (None)."""
-        if not self.uses_pool(len(padded)):
-            for _ in padded:
-                yield None
-            return
-        global _SN_STEP_WITNESS_ARGS
-        store.hydrate_z_cache()       # no hashing may be left to a child
-        _SN_STEP_WITNESS_ARGS = (pp, store, padded)
-        ctx = multiprocessing.get_context("fork")
-        n_proc = min(len(padded), max(1, (ctx.cpu_count() or 2) - 1))
-        pool = ProcessPoolExecutor(n_proc, mp_context=ctx)
-        try:
-            for packed, outs, pc_next in pool.map(
-                    _sn_step_witness_worker, range(len(padded))):
-                yield _unpack_aux(packed), outs, pc_next
-        finally:
-            pool.shutdown(cancel_futures=True)
-            _SN_STEP_WITNESS_ARGS = None
+    @staticmethod
+    def witness_jobs(store: Store, padded: List[List[Frame]]):
+        """Each step's ``(z_in, step_aux)`` for the primary step
+        function, ``step_aux = (chunk, next pc, store)``."""
+        return [(io_scalars(store, chunk[0].input),
+                 (chunk, padded[k + 1][0].pc if k + 1 < len(padded) else 0,
+                  store))
+                for k, chunk in enumerate(padded)]
 
     @staticmethod
     def verify(pp: SnCyclePublicParams, proof: SnCycleProof) -> bool:
@@ -234,13 +203,6 @@ def _side_pp2(pp: SnCyclePublicParams) -> PublicParams:
     return PublicParams(pp.shape2, pp.curve2, pp.ck2)
 
 
-def _folded_secondary(pp: SnCyclePublicParams, proof):
-    r2 = cycle_fold_challenge(pp.curve2, pp.pp_digest, proof.u2,
-                              proof.u2_pending, proof.comm_t_last)
-    return fold_instance(pp.curve2, proof.u2, proof.u2_pending,
-                         proof.comm_t_last, r2, pp.field2.modulus)
-
-
 def compress_sn_cycle(pp: SnCyclePublicParams, proof: SnCycleProof
                       ) -> CompressedSnCycleProof:
     """Spartan over each primary accumulator (HyperKZG openings on
@@ -248,7 +210,7 @@ def compress_sn_cycle(pp: SnCyclePublicParams, proof: SnCycleProof
     secondary in a thread: its host C++ calls release the interpreter
     lock, so it overlaps the primary's."""
     def _secondary():
-        return spartan.prove(_side_pp2(pp), _folded_secondary(pp, proof),
+        return spartan.prove(_side_pp2(pp), fold_pending(pp, proof),
                              proof.w2_folded)
 
     with ThreadPoolExecutor(max_workers=1) as ex:
@@ -279,46 +241,9 @@ def verify_compressed_sn_cycle(pp: SnCyclePublicParams,
     g_n = sn_state2(pp.curve1, pp.pp_digest, cp.n, cp.u1s, h_n)
     if cp.u2_pending.x[1] != g_n:
         return False
-    u2f = _folded_secondary(pp, cp)
+    u2f = fold_pending(pp, cp)
     for pc in range(pp.n_circuits):
         if not spartan.verify(_side_pp1(pp, pc), cp.u1s[pc],
                               cp.spartans1[pc]):
             return False
     return spartan.verify(_side_pp2(pp), u2f, cp.spartan2)
-
-
-# ---------------------------------------------------------------------------
-# The fork pool's worker
-# ---------------------------------------------------------------------------
-
-
-_SN_STEP_WITNESS_ARGS = None
-
-
-def _pack_aux(values) -> np.ndarray:
-    return pack_ints(values)
-
-
-def _unpack_aux(packed: np.ndarray) -> List[int]:
-    return unpack_ints(packed, packed.size // 4)
-
-
-def step_witness(pp: SnCyclePublicParams, store: Store,
-                 padded: List[List[Frame]], k: int):
-    """Step k's witness, independent of the accumulators: the step
-    function's aux segment (packed), the z_next values and the next
-    pc."""
-    chunk = padded[k]
-    pc = chunk[0].pc
-    next_pc = padded[k + 1][0].pc if k + 1 < len(padded) else 0
-    cs = ConstraintSystem(pp.field1, witness_only=True)
-    zi = [alloc_num(cs, v) for v in io_scalars(store, chunk[0].input)]
-    n0 = len(cs.aux)
-    z_next, pc_next = pp.cfg1s[pc].step_fn(cs, zi, (chunk, next_pc, store))
-    return (_pack_aux(cs.aux[n0:]), [o.value for o in z_next],
-            pc_next.value)
-
-
-def _sn_step_witness_worker(k: int):
-    pp, store, padded = _SN_STEP_WITNESS_ARGS
-    return step_witness(pp, store, padded, k)

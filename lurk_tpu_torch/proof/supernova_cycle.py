@@ -40,7 +40,9 @@ from .nova import (
     RelaxedWitness, _absorb_relaxed, check_relaxed, cross_term,
     fold_instance, fold_witness, z_vector,
 )
-from .nova_cycle import _default_relaxed, cycle_fold_challenge
+from .nova_cycle import (
+    _default_relaxed, cycle_fold_challenge, fold_pending,
+)
 from .params_cache import cached_shape
 from .supernova_augmented import (
     SnPrimaryCfg, SnPrimaryWitness, SnSecondaryCfg, SnSecondaryWitness,
@@ -355,10 +357,7 @@ def verify(pp: SnCyclePublicParams, proof: SnCycleProof) -> bool:
     g_n = sn_state2(pp.curve1, pp.pp_digest, proof.n, proof.u1s, h_n)
     if proof.u2_pending.x[1] != g_n:
         return False
-    r2 = cycle_fold_challenge(pp.curve2, pp.pp_digest, proof.u2,
-                              proof.u2_pending, proof.comm_t_last)
-    u2f = fold_instance(pp.curve2, proof.u2, proof.u2_pending,
-                        proof.comm_t_last, r2, pp.field2.modulus)
+    u2f = fold_pending(pp, proof)
     for pc in range(pp.n_circuits):
         if not check_relaxed(pp.shapes1[pc], proof.u1s[pc],
                              proof.w1s[pc]):

@@ -37,6 +37,7 @@ import pathlib
 import pickle
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -222,6 +223,48 @@ def test_mle_matches_jax(jax_paths):
     tr = Transcript(BN254_G1, b"sc.test2")
     with pytest.raises(ValueError):
         mle.sumcheck_verify(claim, bad, 2, p, challenger(tr))
+
+
+def test_host_calls_keep_their_scalars_alive_across_threads():
+    """``poly_eval``, ``poly_quotient``, ``bind_eo`` and ``mle_eval``
+    hand the host C++ a pointer to a scalar's limbs: that array must
+    live until the call returns. The compressions run two Spartan
+    proofs in threads, so other threads allocate while a call runs;
+    here four threads repeat the calls while two more allocate, and
+    every result equals the one computed alone."""
+    p = BN256_SCALAR.modulus
+    rng = np.random.default_rng(5)
+    vecs = [PackedVec.pack(rand_field(rng, 1 << 10, p), p)
+            for _ in range(4)]
+    zs = rand_field(rng, 4, p)
+
+    def run(pv, z):
+        return (hsc.poly_eval(pv, z), hsc.poly_quotient(pv, z).ints(),
+                hsc.bind_eo(PackedVec(pv.arr.copy(), pv.n, p), z).ints(),
+                hsc.mle_eval(pv, [z] * 10, p))
+
+    want = [run(pv, z) for pv, z in zip(vecs, zs)]
+    stop = threading.Event()
+    got = []
+
+    def churn():
+        while not stop.is_set():
+            [np.full(4, 2**64 - 1, dtype=np.uint64) for _ in range(50)]
+
+    def work(k):
+        got.extend(run(vecs[k], zs[k]) == want[k] for _ in range(10))
+
+    churners = [threading.Thread(target=churn) for _ in range(2)]
+    workers = [threading.Thread(target=work, args=(k,)) for k in range(4)]
+    for t in churners + workers:
+        t.start()
+    for t in workers:
+        t.join(timeout=60)
+    stop.set()
+    for t in churners:
+        t.join(timeout=10)
+    assert not any(t.is_alive() for t in churners + workers)
+    assert len(got) == 40 and all(got)
 
 
 def test_host_fold_chain_matches_jax_python(jax_paths):

@@ -9,8 +9,8 @@ the JAX package on the CPU. Integers only: tolerance 0.
   ``w1s``, ``u2``, ``u2_pending``, ``comm_t_last`` and ``w2_folded``.
 - Each package's verifier accepts the other's proof; both reject a
   changed ``zn`` and a changed entry of ``w2_folded``.
-- The pool's step witnesses equal the inline ones, and a worker's
-  exception fails the prove.
+- The shared fork pool's step witnesses (:mod:`witness_pool`) equal
+  the inline ones, and a worker's exception fails the prove.
 - The shape files are read back by both packages.
 
 The JAX side proves in a child process, with its host C++ (built into
@@ -46,7 +46,7 @@ from lurk_tpu_torch.fields import BN256_SCALAR
 from lurk_tpu_torch.hostlib.r1cs import PackedVec
 from lurk_tpu_torch.lem.evaluation import Coprocessor, Lang
 from lurk_tpu_torch.parser import read_with_default_state
-from lurk_tpu_torch.proof import nova, params_cache
+from lurk_tpu_torch.proof import nova, params_cache, witness_pool
 from lurk_tpu_torch.proof import prover_supernova_cycle as psc
 from lurk_tpu_torch.proof import supernova_cycle as sc
 from lurk_tpu_torch.store.core import Store
@@ -87,7 +87,7 @@ from lurk_tpu.store.core import Store
 store = Store(BN256_SCALAR, use_device=False)
 pp, proof, frames = SuperNovaCycleProver(rc=1).evaluate_and_prove(
     store, read_with_default_state(store, sys.argv[2]), limit=50)
-assert not builds
+assert all(b.wait() == 0 for b in builds.values())
 rel = lambda u: (u.comm_w, u.comm_e, list(u.x), u.u)
 wit = lambda w: (list(w.w), list(w.e))
 shapes = [(s.digest, s.num_inputs, s.num_aux, s.num_constraints)
@@ -256,27 +256,31 @@ def test_verifiers_reject_a_changed_proof(proofs, change):
 
 
 def test_pool_witnesses_equal_inline(proofs):
-    """The fork pool's (aux segment, z_next, pc_next) of every step
-    equals the same synthesis run here."""
+    """The shared fork pool's (aux segment, (z_next, pc_next)) of every
+    step equals the same synthesis run here."""
     pp, store, prover = proofs["pp"], proofs["store"], proofs["prover"]
     padded = prover.chunks(store, proofs["frames"])
-    assert len(padded) == 3 and prover.uses_pool(len(padded))
-    pooled = list(prover._step_witness_caches(pp, padded, store))
-    for k, (seg, outs, pc_next) in enumerate(pooled):
-        packed, outs_inline, pc_inline = psc.step_witness(pp, store,
-                                                          padded, k)
-        assert seg == psc._unpack_aux(packed)
+    jobs = prover.witness_jobs(store, padded)
+    assert len(padded) == 3 and witness_pool.uses_pool(prover.check_steps,
+                                                       len(padded))
+    step_fn = pp.cfg1s[0].step_fn
+    pooled = list(witness_pool.step_witnesses(store, step_fn, jobs,
+                                              prover.check_steps))
+    for (seg, (outs, pc_next)), (z_in, aux) in zip(pooled, jobs):
+        packed, (outs_inline, pc_inline) = witness_pool.step_witness(
+            pp.field1, step_fn, z_in, aux)
+        assert seg == witness_pool.unpack_segment(packed)
         assert (outs, pc_next) == (outs_inline, pc_inline)
         assert len(seg) > 1000
-    assert psc._SN_STEP_WITNESS_ARGS is None
+    assert witness_pool._POOL_ARGS is None
 
 
-def _failing_step_witness(pp, store, padded, k):
+def _failing_worker(k):
     raise RuntimeError(f"worker failed on step {k}")
 
 
 def test_a_worker_exception_fails_the_prove(proofs, monkeypatch):
-    monkeypatch.setattr(psc, "step_witness", _failing_step_witness)
+    monkeypatch.setattr(witness_pool, "_worker", _failing_worker)
     with pytest.raises(RuntimeError, match="worker failed on step 0"):
         proofs["prover"].prove_from_frames(proofs["store"],
                                            proofs["frames"])
