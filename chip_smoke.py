@@ -87,8 +87,10 @@ Phases, each fatal on failure:
      synthesized inline beside the pool's waits; verify (4 launches: W
      and E on each curve) accepts and rejects the proof with one entry
      of its final W1 changed; each commit's kernel timed alone with its
-     bound, by curve and size class; step 0's W1 and W2 and step 1's T2
-     against the plain version on the card;
+     bound, by curve and size class; step 0's W2 and step 1's T2
+     against the plain version on the card (not step 0's W1, 922,575
+     scalars, for the script's time: K6 at about 10^6 BN254 scalars is
+     held against its plain version by phases 4.3 and 8);
   10. compression: compress_sn_cycle (Spartan with HyperKZG's commits
      through K6 on BN254, the IPA's MSMs on the host on Grumpkin), its
      phases' times (``spartan.*``), verify_compressed_sn_cycle (no MSM
@@ -116,7 +118,19 @@ Phases, each fatal on failure:
      entry; each commit's kernel timed alone; compress and
      verify_compressed accept, and reject a changed step input and a
      proof with no Spartan proofs; a HyperKZG chain commit of 2^12
-     scalars against the plain version.
+     scalars against the plain version;
+  13. the CLI (``lurk_tpu_torch.cli``): ``load <fib(100)> --rc 100
+     --limit 800 --prove`` through its ``main`` in this process, with
+     the default device (cuda) and backend (supernova-cycle, compressed,
+     self-checked), the public parameters dropped from memory so that
+     they load from the disk cache: 800 iterations, K1 on the CLI
+     store's batched waves and K6 on both curves, the persisted proof
+     file equal to phase 10's compressed proof; ``python -m
+     lurk_tpu_torch.cli verify`` in a child process exits 0; ``inspect``;
+     a copy with one sumcheck value changed is rejected (exit 1); each
+     part's seconds beside PERF.md's prediction; the CLI's K1 waves and
+     K6 commits timed alone (their launches and times are in the
+     kernels line with the other phases').
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -125,8 +139,10 @@ without a CUDA card or without the rest of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import os
 import re
@@ -1361,7 +1377,7 @@ def phase9(bound, store, frames) -> dict:
     parameters built first and timed, then dropped from memory, so that
     the prove loads them from the disk cache), its verify, and a proof with one
     entry of its final W1 changed; each commit's kernel timed alone;
-    step 0's W1 and a Grumpkin W2 and T2 against the plain version."""
+    step 0's W2 and step 1's T2 against the plain version."""
     from lurk_tpu_torch.hostlib.r1cs import PackedVec
     from lurk_tpu_torch.msm import kernel as M
     from lurk_tpu_torch.poseidon import kernel as K
@@ -1474,8 +1490,7 @@ def phase9(bound, store, frames) -> dict:
     print_classes("prove", timed[:32])
     print_classes("verify", timed[32:])
     plain_ms = 0.0
-    for k, what in ((0, "step 0's W1"), (2, "step 0's W2"),
-                    (3, "step 1's T2")):
+    for k, what in ((2, "step 0's W2"), (3, "step 1's T2")):
         key, vec, point = records[k]
         words = vec.arr.view(np.uint32).reshape(vec.n, 8)
         plain, ms = plain_commit(key.curve, key.table(), words)
@@ -1484,7 +1499,7 @@ def phase9(bound, store, frames) -> dict:
     ms, bound_ms = sum(t[2] for t in timed), sum(t[3] for t in timed)
     print(f"phase 9.3: the cycle fold's {len(timed)} commits' kernels "
           f"{ms:.3f} ms in all, bound {bound_ms:.3f} ms "
-          f"({bound_ms / ms:.1%}); step 0's W1 and W2 and step 1's T2 "
+          f"({bound_ms / ms:.1%}); step 0's W2 and step 1's T2 "
           f"equal the plain version on the card ({plain_ms:.1f} ms, host "
           f"clock) ({time.perf_counter() - t0:.1f} s)")
     return {"launches": 36, "ms": ms, "bound_ms": bound_ms,
@@ -1812,6 +1827,140 @@ def phase12(bound, store, frames) -> dict:
             "t_verify": comp["t_verify"]}
 
 
+# phase 13's parts, each with the range PERF.md section 5 predicted
+# before its first run on the card
+CLI_PREDICTED = {"load --prove": "45-60", "verify (new process)": "15-25",
+                 "inspect": "< 5", "verify (changed proof)": "< 5"}
+
+
+def phase13(bound, cp) -> dict:
+    """The CLI on the card: ``load <fib(100)> --rc 100 --limit 800
+    --prove`` through ``lurk_tpu_torch.cli.__main__.main`` in this
+    process, with the default device and backend (supernova-cycle,
+    compressed, self-checked), its public parameters dropped from
+    memory first so that they load from the disk cache as in a new
+    process; 800 iterations, K1 and K6 launched, the persisted proof
+    equal to phase 10's compressed proof ``cp``; then ``python -m
+    lurk_tpu_torch.cli verify`` in a child process, ``inspect``, and
+    ``verify`` of a copy with one sumcheck value changed (rejected).
+    The CLI's K1 waves and K6 commits are then timed alone."""
+    from lurk_tpu_torch.cli.__main__ import main as cli_main
+    from lurk_tpu_torch.cli.lurk_proof import (
+        LurkProof, LurkProofMeta, proofs_dir)
+    from lurk_tpu_torch.examples import FIB_PROGRAM, fib_limit
+    from lurk_tpu_torch.fields import BN256_SCALAR
+    from lurk_tpu_torch.msm import kernel as M
+    from lurk_tpu_torch.poseidon import kernel as K
+    from lurk_tpu_torch.proof import hyperkzg as hk
+    from lurk_tpu_torch.proof import prover_supernova_cycle as psc
+    from lurk_tpu_torch.store import core
+
+    root = Path(__file__).resolve().parent
+    src = root / "lurk_tpu_torch" / "_build" / "fib100.lurk"
+    src.write_text(FIB_PROGRAM)
+    psc._PP_CACHE.clear()
+    hk._SRS_MEM.clear()
+    waves = []
+
+    def recording_hash_batch(field, arity, pres, device=None):
+        waves.append((arity, len(pres)))
+        return K.hash_batch(field, arity, pres, device)
+
+    times = {}
+    out = io.StringIO()
+    core.hash_batch = recording_hash_batch
+    try:
+        with CommitRecorder() as rec, contextlib.redirect_stdout(out):
+            reset_counts()
+            t0 = time.perf_counter()
+            rc = cli_main(["load", str(src), "--rc", str(STEP_RC),
+                           "--limit", str(fib_limit(100, STEP_RC)),
+                           "--prove"])
+            torch.cuda.synchronize()
+            times["load --prove"] = time.perf_counter() - t0
+            k1, k6 = K.launches, dict(M.launches_by_curve)
+            commits = list(rec.records)
+    finally:
+        core.hash_batch = K.hash_batch
+    print(out.getvalue(), end="")
+    check(rc == 0, f"the CLI's load --prove returned {rc}")
+    m = re.search(r'Proof key: "([^"]+)"', out.getvalue())
+    check(m is not None, "the CLI printed no proof key")
+    key = m.group(1)
+    check(key.startswith(f"supernova-cycle_bn256_{STEP_RC}_"),
+          f"proof key {key}")
+    meta = LurkProofMeta.load(key)
+    check(meta is not None and meta.iterations == 800,
+          "the CLI's evaluation is not phase 2's 800 frames")
+    check(k1 == len(waves) > 0, f"{k1} K1 launches for the CLI's "
+          f"{len(waves)} batched waves")
+    check(set(k6) == {"bn254-g1", "grumpkin"},
+          f"K6 launches {k6} in the CLI's prove")
+    path = proofs_dir() / f"{key}.proof.json"
+    text = path.read_text()
+    check(text == LurkProof(cp, STEP_RC, "bn256", "supernova-cycle",
+                            "compressed").to_json(),
+          "the CLI's proof file differs from phase 10's compressed proof")
+    print(f"phase 13.1: python -m lurk_tpu_torch.cli load fib100.lurk "
+          f"--rc {STEP_RC} --limit {fib_limit(100, STEP_RC)} --prove "
+          f"(in-process, default device and backend): 800 iterations, "
+          f"K1 {k1} launches (waves {waves}), K6 {k6}; the proof file "
+          f"({len(text):,} bytes) equals phase 10's compressed proof")
+
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-m", "lurk_tpu_torch.cli", "verify", key,
+         "--rc", str(STEP_RC)], capture_output=True, text=True,
+        cwd=root, timeout=600)
+    times["verify (new process)"] = time.perf_counter() - t0
+    check(child.returncode == 0 and "Proof verified" in child.stdout,
+          f"the child's verify: exit {child.returncode}, stdout "
+          f"{child.stdout[-500:]!r}, stderr {child.stderr[-2000:]!r}")
+
+    t0 = time.perf_counter()
+    check(cli_main(["inspect", key]) == 0, "inspect failed")
+    times["inspect"] = time.perf_counter() - t0
+
+    d = json.loads(text)
+    row = d["proof"]["spartans1"][0]["sc1"][3]
+    row[1] = f"{(int(row[1], 16) + 1) % BN256_SCALAR.modulus:x}"
+    bad_key = key + "-changed"
+    path.with_name(f"{bad_key}.proof.json").write_text(json.dumps(d))
+    t0 = time.perf_counter()
+    check(cli_main(["verify", bad_key, "--rc", str(STEP_RC)]) == 1,
+          "verify accepts the proof with one sumcheck value changed")
+    times["verify (changed proof)"] = time.perf_counter() - t0
+    print("phase 13.2: python -m lurk_tpu_torch.cli verify in a new "
+          "process exits 0 (\"Proof verified\"); inspect; the copy with "
+          "one sumcheck value changed is rejected (exit 1); seconds: "
+          + ", ".join(f"{k} {v:.1f} (predicted {CLI_PREDICTED[k]})"
+                      for k, v in times.items()))
+
+    dev = torch.device("cuda")
+    const_bytes = {a: K.constants(BN256_SCALAR, a, dev).numel() * 4
+                   for a in {a for a, _ in waves}}
+    k1_ms = k1_bound = 0.0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 13)
+    for arity, b in waves:
+        x = random_preimages(BN256_SCALAR, arity, b, gen, dev)
+        k1_ms += time_ms(lambda: K.poseidon_hash(BN256_SCALAR, arity, x),
+                         20)
+        k1_bound += bound.of(BN256_SCALAR, arity, b, const_bytes[arity])[0]
+    timed = kernel_alone(bound, commits)
+    check(len(timed) == sum(k6.values()),
+          f"{len(timed)} commits timed, {k6} launched")
+    print_classes("CLI", timed)
+    ms, bound_ms = sum(t[2] for t in timed), sum(t[3] for t in timed)
+    print(f"phase 13.3: the CLI's {k1} K1 waves {k1_ms:.4f} ms (bound "
+          f"{k1_bound:.6f} ms), its {len(timed)} K6 commits {ms:.3f} ms "
+          f"(bound {bound_ms:.3f} ms, {bound_ms / ms:.1%}), each timed "
+          f"alone")
+    return {"k1": {"launches": k1, "ms": k1_ms, "bound_ms": k1_bound},
+            "k6": {"launches": len(timed), "ms": ms, "bound_ms": bound_ms},
+            "times": times}
+
+
 def imad_rate(sms: int):
     """(32-bit IMAD per second, SM clock in MHz under that load) from
     csrc/imad_rate.cu: CUDA events over IMAD_LAUNCHES back-to-back
@@ -2117,14 +2266,25 @@ def main() -> int:
               f"compress {part['t_compress']:.1f} s + verify "
               f"{part['t_verify']:.1f} s")
 
-    for part in (fold, cycle, comp, nova_cycle, nivc):
+    # ---- phase 13: the CLI, load --prove, verify, inspect ----
+    cli = phase13(bound, comp["cp"])
+    elapsed("13", t_all)
+    print(f"fib(100) through the CLI: load --prove "
+          f"{cli['times']['load --prove']:.1f} s (read, evaluate, hydrate, "
+          f"the public parameters from the disk cache, prove, compress, "
+          f"self-check, files), verify in a new process "
+          f"{cli['times']['verify (new process)']:.1f} s")
+
+    for part in (fold, cycle, comp, nova_cycle, nivc, cli["k6"]):
         for k in ("launches", "ms", "bound_ms"):
             msm[k] += part[k]
+    for k in ("launches", "ms", "bound_ms"):
+        sparse[k] += cli["k1"][k]
     for part in (fold, cycle, nova_cycle, nivc):
         msm["plain_ms"] += part["plain_ms"]
     msm["plain_of"] = (f"the 2^20 commit, "
                        f"{' and '.join(w for _, w in PHASE8_PLAIN)} of the "
-                       f"Nova fold, step 0's W1 and W2 and step 1's T2 of "
+                       f"Nova fold, step 0's W2 and step 1's T2 of "
                        f"the cycle fold, step 0's W2 of the Nova cycle, a "
                        f"2^12 HyperKZG commit of NIVC's compress")
 

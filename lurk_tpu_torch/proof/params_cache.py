@@ -29,11 +29,16 @@ from ..hostlib.fastpack import unpack_ints
 from ..ops import field as F
 
 
+def cache_base() -> Path:
+    """``$LURK_TPU_CACHE``, default ``~/.lurk_tpu``: the base of the
+    parameter cache, the CLI's proofs and commitments and its history."""
+    return Path(os.environ.get("LURK_TPU_CACHE",
+                               os.path.join(os.path.expanduser("~"),
+                                            ".lurk_tpu")))
+
+
 def cache_dir() -> Path:
-    base = os.environ.get("LURK_TPU_CACHE",
-                          os.path.join(os.path.expanduser("~"),
-                                       ".lurk_tpu"))
-    d = Path(base) / "torch_public_params"
+    d = cache_base() / "torch_public_params"
     d.mkdir(parents=True, exist_ok=True)
     return d
 
