@@ -69,8 +69,9 @@ Phases, each fatal on failure:
      NovaProver.verify (W and E recommitted: 2 launches) accepts, and
      rejects the proof with one entry of its final W changed; each
      step's phase times (host clock), then each commit's kernel timed
-     alone (CUDA events) with its bound; the commits of PHASE8_PLAIN
-     against the plain version on the card; then spartan.compress
+     alone (CUDA events) with its bound (none against the plain version
+     since phase 14: K6 at about 10^6 BN254 scalars is held by phase
+     4.3's 2^20 commit); then spartan.compress
      (HyperKZG's commits through K6) and verify_compressed with the IO
      chain check accept, and reject a changed sumcheck value and a
      dropped last step;
@@ -130,7 +131,25 @@ Phases, each fatal on failure:
      a copy with one sumcheck value changed is rejected (exit 1); each
      part's seconds beside PERF.md's prediction; the CLI's K1 waves and
      K6 commits timed alone (their launches and times are in the
-     kernels line with the other phases').
+     kernels line with the other phases');
+  14. coprocessors: the trie program (the reference's trie_nivc.rs,
+     1,590 frames, 5 of them coprocessor frames) read and evaluated on
+     a Store(BN256, cuda), its result 12688603180, hydrated through K1
+     (a launch a batched wave, every digest against host hashing), each
+     wave's kernel timed alone; the sha256 NIVC proof (BASELINE.md's
+     config 5, ``(sha256_nivc_1 1)`` at rc = 10) through
+     SuperNovaCycleProver: its public parameters cold and timed (two
+     primary circuits, keys BN254 2^18 and Grumpkin 2^15, the SRS read
+     from the disk cache at that length), 3 steps through the fork pool
+     (6 + 6 K6 launches), the sha256 step's W1 against the plain
+     version, verify (4 + 2) and a changed final W1 rejected,
+     compress_sn_cycle and its verifier with a changed sumcheck value;
+     then the same program through SuperNovaProver(rc=10) as
+     scripts/torch_sha256_nivc.py proves and verifies it (10 K6
+     launches), supernova.compress and verify_compressed with a changed
+     input of the sha256 step; prove, compress and verify seconds
+     beside PERF.md's prediction. Phase 14's launches and times are in
+     the kernels line.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -214,13 +233,11 @@ W_LIKE_VALUES = 50_000         # fib(100)'s W: 49,161 distinct values
 W_TIMED = 3                    # timed launches per commit of the fold
 BENCH_TIMEOUT_S = 300
 STEP_RC = 100                  # fib(100)'s 800 frames in 8 folding steps
-# phase 8 (the Nova fold): the frames it folds, and the commits (index
-# in the prove's order: W, T of each step) held against the plain
-# version; cut from 800 frames and from step 0's W and T and step 1's T
-# to keep the whole script inside 900 s with phases 11-12
-# (the shape, and so each commit's width, is the same at 200 frames)
+# phase 8 (the Nova fold): the frames it folds, cut from 800 to keep
+# the whole script inside its time limit with phases 11-14 (the shape,
+# and so each commit's width, is the same at 200 frames); no commit of
+# it is held against the plain version since phase 14 came
 PHASE8_FRAMES = 200
-PHASE8_PLAIN = ((3, "step 1's T"),)
 CHECK_RC = 5
 
 
@@ -1102,6 +1119,34 @@ def phase7(store, frames) -> None:
           f"({time.perf_counter() - t0:.1f} s)")
 
 
+def waves_alone(bound, gen, dev, waves):
+    """K1 at each batched wave's (arity, B) on random preimages: held
+    against its plain version, timed alone (CUDA events) and plain, with
+    its bound. Returns (ms, plain ms, bound ms, max abs err, the bounds'
+    kinds)."""
+    from lurk_tpu_torch.fields import BN256_SCALAR
+    from lurk_tpu_torch.poseidon import kernel as K
+    ms = plain_ms = bound_ms = 0.0
+    max_err = 0
+    bound_by = set()
+    for arity, b in waves:
+        x = random_preimages(BN256_SCALAR, arity, b, gen, dev)
+        max_err = max(max_err, compare(BN256_SCALAR, arity, x,
+                                       K.poseidon_hash,
+                                       K.poseidon_hash_plain)[0])
+        k_ms = time_ms(lambda: K.poseidon_hash(BN256_SCALAR, arity, x), 20)
+        p_ms = time_ms(
+            lambda: K.poseidon_hash_plain(BN256_SCALAR, arity, x), 1)
+        b_ms, by = bound.of(BN256_SCALAR, arity, b,
+                            K.constants(BN256_SCALAR, arity, dev).numel() * 4)
+        print(f"  wave arity {arity} B={b} ({shape_of('poseidon', b)} "
+              f"shape): kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms, bound "
+              f"{b_ms:.6f} ms ({by}), {b_ms / k_ms:.2%} of it")
+        ms, plain_ms, bound_ms = ms + k_ms, plain_ms + p_ms, bound_ms + b_ms
+        bound_by.add(by)
+    return ms, plain_ms, bound_ms, max_err, bound_by
+
+
 def plain_commit(curve, table, words: np.ndarray):
     """The plain MSM of reduced scalar words against the table's first
     rows, over lane chunks of PLAIN_CHUNK (its temporaries take some 70
@@ -1221,23 +1266,12 @@ def phase8(bound, store, frames) -> dict:
               f"{b_ms[2 * k]:.3f}), T {k_ms[2 * k + 1]:.3f} ms (bound "
               f"{b_ms[2 * k + 1]:.3f}) (CUDA events, {W_TIMED} launches)")
     print(f"  verify: K6 W {k_ms[-2]:.3f} ms, E {k_ms[-1]:.3f} ms")
-    # commits against the plain version: step 1's T is the first
-    # non-zero one (T of step 0 folds into the zero accumulator)
-    plain_ms = 0.0
-    for k, what in PHASE8_PLAIN:
-        _, vec, point = commits[k]
-        words = vec.arr.view(np.uint32).reshape(vec.n, 8)
-        plain, ms = plain_commit(curve, table, words)
-        plain_ms += ms
-        check(plain == point, f"{what} commit differs from the plain version")
+    # T of step 0 folds into the zero accumulator
     check(commits[1][2] is None and commits[3][2] is not None,
           "step 0's T is not the identity or step 1's T is")
     ms, bound_ms = sum(k_ms), sum(b_ms)
     print(f"phase 8.3: the fold's {len(k_ms)} commits' kernels {ms:.3f} ms "
-          f"in all, bound {bound_ms:.3f} ms ({bound_ms / ms:.1%}); "
-          f"equal to the plain version on the card: "
-          f"{' and '.join(what for _, what in PHASE8_PLAIN)} "
-          f"({plain_ms:.1f} ms, host clock) "
+          f"in all, bound {bound_ms:.3f} ms ({bound_ms / ms:.1%}) "
           f"({time.perf_counter() - t0:.1f} s)")
 
     # the JAX REPL's other backend compresses this fold with Spartan
@@ -1251,8 +1285,7 @@ def phase8(bound, store, frames) -> dict:
                     ("its last step dropped",
                      dataclasses.replace(cp, steps=cp.steps[:-1]))])
     return {"launches": launches + verify_launches + comp["launches"],
-            "ms": ms + comp["ms"], "bound_ms": bound_ms + comp["bound_ms"],
-            "plain_ms": plain_ms}
+            "ms": ms + comp["ms"], "bound_ms": bound_ms + comp["bound_ms"]}
 
 
 def reset_counts() -> None:
@@ -1289,6 +1322,26 @@ class CommitRecorder:
 
     def __exit__(self, *exc):
         self.nova.CommitmentKey.commit_async = self.orig
+
+
+class WaveRecorder:
+    """While active, records the (arity, size) of each batched store
+    wave (each one K1 launch on the card)."""
+
+    def __enter__(self):
+        from lurk_tpu_torch.poseidon import kernel as K
+        from lurk_tpu_torch.store import core
+        self.waves = waves = []
+        self.core, self.hash_batch = core, K.hash_batch
+
+        def recording(field, arity, pres, device=None):
+            waves.append((arity, len(pres)))
+            return K.hash_batch(field, arity, pres, device)
+        core.hash_batch = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.core.hash_batch = self.hash_batch
 
 
 def kernel_alone(bound, recs):
@@ -1853,35 +1906,25 @@ def phase13(bound, cp) -> dict:
     from lurk_tpu_torch.poseidon import kernel as K
     from lurk_tpu_torch.proof import hyperkzg as hk
     from lurk_tpu_torch.proof import prover_supernova_cycle as psc
-    from lurk_tpu_torch.store import core
 
     root = Path(__file__).resolve().parent
     src = root / "lurk_tpu_torch" / "_build" / "fib100.lurk"
     src.write_text(FIB_PROGRAM)
     psc._PP_CACHE.clear()
     hk._SRS_MEM.clear()
-    waves = []
-
-    def recording_hash_batch(field, arity, pres, device=None):
-        waves.append((arity, len(pres)))
-        return K.hash_batch(field, arity, pres, device)
-
     times = {}
     out = io.StringIO()
-    core.hash_batch = recording_hash_batch
-    try:
-        with CommitRecorder() as rec, contextlib.redirect_stdout(out):
-            reset_counts()
-            t0 = time.perf_counter()
-            rc = cli_main(["load", str(src), "--rc", str(STEP_RC),
-                           "--limit", str(fib_limit(100, STEP_RC)),
-                           "--prove"])
-            torch.cuda.synchronize()
-            times["load --prove"] = time.perf_counter() - t0
-            k1, k6 = K.launches, dict(M.launches_by_curve)
-            commits = list(rec.records)
-    finally:
-        core.hash_batch = K.hash_batch
+    with WaveRecorder() as wrec, CommitRecorder() as rec, \
+            contextlib.redirect_stdout(out):
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = cli_main(["load", str(src), "--rc", str(STEP_RC),
+                       "--limit", str(fib_limit(100, STEP_RC)), "--prove"])
+        torch.cuda.synchronize()
+        times["load --prove"] = time.perf_counter() - t0
+        k1, k6 = K.launches, dict(M.launches_by_curve)
+        commits = list(rec.records)
+    waves = wrec.waves
     print(out.getvalue(), end="")
     check(rc == 0, f"the CLI's load --prove returned {rc}")
     m = re.search(r'Proof key: "([^"]+)"', out.getvalue())
@@ -1959,6 +2002,241 @@ def phase13(bound, cp) -> dict:
     return {"k1": {"launches": k1, "ms": k1_ms, "bound_ms": k1_bound},
             "k6": {"launches": len(timed), "ms": ms, "bound_ms": bound_ms},
             "times": times}
+
+
+# phase 14's sha256 NIVC proof (BASELINE.md's config 5), each part with
+# the range PERF.md section 5 predicted before its first run on the card
+SHA256_RC = 10
+SHA256_PREDICTED = {"public parameters": "15-30", "prove": "3-8",
+                    "compress": "9-11", "verify": "3-4"}
+
+
+def phase14(bound, gen, dev) -> dict:
+    """Coprocessors on the card. 14.1: the trie program read and
+    evaluated on a Store(BN256, cuda) (its result checked), hydrated
+    through K1 (a launch a batched wave, every digest against host
+    hashing) and each wave's kernel timed alone. 14.2: the sha256 NIVC
+    program ``(sha256_nivc_1 1)`` through SuperNovaCycleProver(rc=10,
+    cuda): the public parameters cold and timed (two primary circuits,
+    keys BN254 2^18 and Grumpkin 2^15),
+    3 steps through the fork pool, K6 launches by curve, the sha256
+    step's W1 against the plain version, verify and a changed final W1,
+    compress_sn_cycle and its verifier with a changed sumcheck value.
+    14.3: the same program through SuperNovaProver(rc=10) as
+    scripts/torch_sha256_nivc.py proves it, then compress and
+    verify_compressed."""
+    from lurk_tpu_torch.coproc.sha256 import (
+        sha256_coprocessor, sha256_nivc_symbol)
+    from lurk_tpu_torch.coproc.trie import install_trie_lang
+    from lurk_tpu_torch.examples import TRIE_PROGRAM, TRIE_RESULT
+    from lurk_tpu_torch.fields import BN256_SCALAR
+    from lurk_tpu_torch.hostlib.r1cs import PackedVec
+    from lurk_tpu_torch.lem.evaluation import Lang, LangSetup, evaluate
+    from lurk_tpu_torch.msm import kernel as M
+    from lurk_tpu_torch.parser import read_with_default_state
+    from lurk_tpu_torch.poseidon import kernel as K
+    from lurk_tpu_torch.proof import hyperkzg as hk
+    from lurk_tpu_torch.proof import nova, witness_pool
+    from lurk_tpu_torch.proof import prover_supernova_cycle as psc
+    from lurk_tpu_torch.proof import supernova as sn
+    from lurk_tpu_torch.store.core import Store
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    from torch_sha256_nivc import prove_sha256_nivc
+
+    # ---- 14.1: the trie program, hydrated through K1 ----
+    t0 = time.perf_counter()
+    lang, *_ = install_trie_lang()
+    store = Store(BN256_SCALAR, device=dev)
+    frames = evaluate(LangSetup.nivc(lang),
+                      read_with_default_state(store, TRIE_PROGRAM), store,
+                      1_000_000)
+    t_eval = time.perf_counter() - t0
+    check(len(frames) == 1590 and sum(f.pc != 0 for f in frames) == 5,
+          f"{len(frames)} frames, {sum(f.pc != 0 for f in frames)} of "
+          f"them coprocessor frames; expected 1590 and 5")
+    check(store.fetch_num(frames[-1].output[0]) == TRIE_RESULT,
+          "the trie program's result is not the reference's")
+    reset_counts()
+    with WaveRecorder() as rec:
+        t0 = time.perf_counter()
+        store.hydrate_z_cache()
+        torch.cuda.synchronize()
+        t_hyd = time.perf_counter() - t0
+        launches = K.launches
+    big = rec.waves
+    check(launches == len(big) and launches > 0,
+          f"{launches} K1 launches for {len(big)} batched waves")
+    host = Store(BN256_SCALAR, device="cpu")
+    host_frames = evaluate(LangSetup.nivc(lang), read_with_default_state(
+        host, TRIE_PROGRAM), host, 1_000_000)
+    for iv, d in store.z_cache.items():
+        check(host.hash_ptr_val(iv) == d, f"hydrated digest of {iv} differs")
+    for f, g in zip(frames, host_frames):
+        check([store.hash_ptr(p) for p in f.input + f.output]
+              == [host.hash_ptr(p) for p in g.input + g.output],
+              "the trie program's z-ptrs differ from host hashing")
+    print(f"phase 14.1: the trie program {len(frames)} frames (5 "
+          f"coprocessor frames), result {TRIE_RESULT}; evaluate "
+          f"{t_eval:.2f} s, hydrate {t_hyd:.3f} s: {len(big)} batched "
+          f"waves {big}, {launches} K1 launches; {len(store.z_cache)} "
+          f"digests equal host hashing")
+    k1_ms, k1_plain, k1_bound, k1_err, _ = waves_alone(bound, gen, dev, big)
+    k1 = {"launches": launches, "ms": k1_ms, "plain_ms": k1_plain,
+          "bound_ms": k1_bound, "max_abs_err": k1_err}
+
+    # ---- 14.2: the sha256 NIVC program through the SuperNova cycle ----
+    # the keys as a new process sizes them (the SRS from the disk cache
+    # at the length the circuits need), not the 2^21 SRS that phases
+    # 9-13 left in memory, whose table on the card would take 6-7 s
+    hk._SRS_MEM.clear()
+    lang = Lang()
+    sym = sha256_nivc_symbol(1)
+    lang.add_coprocessor(sym, sha256_coprocessor(1))
+    store = Store(BN256_SCALAR, device=dev)
+    frames = evaluate(LangSetup.nivc(lang), store.list(
+        [store.intern_symbol(sym), store.num(1)]), store, 100)
+    check([f.pc for f in frames] == [0, 0, 1, 0],
+          f"pcs {[f.pc for f in frames]}, expected [0, 0, 1, 0]")
+    store.hydrate_z_cache()
+    prover = psc.SuperNovaCycleProver(rc=SHA256_RC, lang=lang, device=dev)
+    times = {}
+    t0 = time.perf_counter()
+    pp = psc.sn_cycle_public_params(store, SHA256_RC, *prover.setup_funcs(),
+                                    lang, device=dev)
+    times["public parameters"] = time.perf_counter() - t0
+    s1s, s2 = pp.shapes1, pp.shape2
+    # the augmented pc-0 circuit (the rc = 10 step and the fold's
+    # gadgets) is above 2^17 constraints
+    check(pp.n_circuits == 2 and len(pp.ck1.gens) == 1 << 18 and
+          len(pp.ck2.gens) == 1 << 15,
+          f"{pp.n_circuits} primary circuits, keys {len(pp.ck1.gens)} and "
+          f"{len(pp.ck2.gens)}; expected 2, 2^18 and 2^15")
+    print(f"phase 14.2: sn_cycle_public_params(rc={SHA256_RC}, sha256 Lang, "
+          f"cuda) cold in {times['public parameters']:.1f} s: primary "
+          + ", ".join(f"pc {pc} {s.num_constraints} constraints, "
+                      f"{s.num_aux} aux" for pc, s in enumerate(s1s))
+          + f"; secondary {s2.num_constraints}, {s2.num_aux}; keys BN254 "
+          f"2^{len(pp.ck1.gens).bit_length() - 1}, Grumpkin 2^15")
+    jobs = prover.witness_jobs(store, prover.chunks(store, frames))
+    check(witness_pool.uses_pool(prover.check_steps, len(jobs)),
+          "the fork pool is off")
+    with CommitRecorder() as rec:
+        reset_counts()
+        t0 = time.perf_counter()
+        pp, proof = prover.prove_from_frames(store, frames)
+        torch.cuda.synchronize()
+        times["prove"] = time.perf_counter() - t0
+        by = dict(M.launches_by_curve)
+        check(proof.n == 3, f"{proof.n} folding steps, expected 3")
+        check(by == {"bn254-g1": 6, "grumpkin": 6},
+              f"MSM launches by curve {by} in the prove, expected 6 + 6 "
+              f"(W1 and T1 of 3 steps; W2 of 3, T2 of steps 1-2 and "
+              f"finish's)")
+        check(K.launches == 0, f"{K.launches} K1 launches in the prove (the "
+              f"store was hydrated)")
+        # step 1 runs the sha256 circuit: its W1 is the fifth commit
+        key, vec, point = rec.records[4]
+        check(key.curve.name == "bn254-g1" and vec.n == s1s[1].num_aux,
+              "the fifth commit is not the sha256 step's W1")
+        print(f"phase 14.2: SuperNovaCycleProver(rc={SHA256_RC}, sha256 "
+              f"Lang, cuda).prove_from_frames: {proof.n} steps (pcs "
+              f"{[c[0].pc for c in prover.chunks(store, frames)]}, fork "
+              f"pool) in {times['prove']:.1f} s, MSM launches {by}")
+        reset_counts()
+        t0 = time.perf_counter()
+        ok = prover.verify(pp, proof)
+        torch.cuda.synchronize()
+        t_verify = time.perf_counter() - t0
+        vby = dict(M.launches_by_curve)
+        check(ok, "SuperNovaCycleProver.verify rejects the sha256 proof")
+        check(vby == {"bn254-g1": 4, "grumpkin": 2}, f"MSM launches {vby} "
+              f"in the verify, expected 4 + 2 (W and E a circuit)")
+        records = list(rec.records)
+    w = proof.w1s[1].w
+    bad_w = PackedVec(w.arr.copy(), w.n, w.p)
+    bad_w[w.n // 2] = (bad_w[w.n // 2] + 1) % w.p
+    w1s = list(proof.w1s)
+    w1s[1] = nova.RelaxedWitness(bad_w, proof.w1s[1].e)
+    check(not prover.verify(pp, dataclasses.replace(proof, w1s=w1s)),
+          "verify accepts a proof whose final W1 was changed")
+    words = vec.arr.view(np.uint32).reshape(vec.n, 8)
+    plain, plain_ms = plain_commit(key.curve, key.table(), words)
+    check(plain == point, "the sha256 step's W1 commit differs from the "
+          "plain version")
+    timed = kernel_alone(bound, records)
+    check(len(timed) == 18, f"{len(timed)} commits timed, expected 18")
+    print_classes("prove", timed[:12])
+    print_classes("verify", timed[12:])
+    ms, bound_ms = sum(t[2] for t in timed), sum(t[3] for t in timed)
+    print(f"phase 14.2: verify accepts ({t_verify:.1f} s, MSM launches "
+          f"{vby}) and rejects a changed final W1 of the sha256 circuit; "
+          f"the sha256 step's W1 ({vec.n} scalars) equals the plain "
+          f"version on the card ({plain_ms:.1f} ms, host clock); the "
+          f"{len(timed)} commits' kernels {ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({bound_ms / ms:.1%})")
+    comp = compression(
+        ("14.2", "14.2", "14.2"), "compress_sn_cycle", bound,
+        lambda: psc.compress_sn_cycle(pp, proof),
+        lambda cp: psc.verify_compressed_sn_cycle(pp, cp),
+        lambda cp: [("one sumcheck value changed", dataclasses.replace(
+            cp, spartans1=[changed_sumcheck(cp.spartans1[0],
+                                            pp.field1.modulus),
+                           cp.spartans1[1]]))])
+    times["compress"], times["verify"] = comp["t_compress"], comp["t_verify"]
+    print("phase 14.2: the sha256 NIVC proof through the SuperNova cycle, "
+          "seconds (host clock): "
+          + ", ".join(f"{k} {v:.1f} (predicted {SHA256_PREDICTED[k]})"
+                      for k, v in times.items()))
+
+    # ---- 14.3: the same program through NIVC (SuperNovaProver) ----
+    with CommitRecorder() as rec:
+        reset_counts()
+        t0 = time.perf_counter()
+        _, npp, nproof, nframes, _ = prove_sha256_nivc(1, dev, SHA256_RC)
+        torch.cuda.synchronize()
+        t_nivc = time.perf_counter() - t0
+        nby = dict(M.launches_by_curve)
+        pcs = [pc for pc, _, _ in nproof.steps]
+        check(len(nframes) == 4 and pcs == [0, 1, 0],
+              f"{len(nframes)} frames, steps of circuits {pcs}; expected 4 "
+              f"and [0, 1, 0]")
+        check(nby == {"bn254-g1": 10}, f"MSM launches {nby} in the prove "
+              f"and verify, expected 10 on BN254 (W and T of 3 steps, W "
+              f"and E of 2 circuits)")
+        nrecords = list(rec.records)
+    ntimed = kernel_alone(bound, nrecords)
+    check(len(ntimed) == 10, f"{len(ntimed)} commits timed, expected 10")
+    print_classes("prove and verify", ntimed)
+    nms, nbound = sum(t[2] for t in ntimed), sum(t[3] for t in ntimed)
+    print(f"phase 14.3: scripts/torch_sha256_nivc.py's prove_sha256_nivc "
+          f"(SuperNovaProver(rc={SHA256_RC}), then verify): {len(nframes)} "
+          f"frames, {len(pcs)} steps over circuits {sorted(set(pcs))}, "
+          f"{t_nivc:.1f} s; MSM launches {nby}; kernels {nms:.3f} ms, "
+          f"bound {nbound:.3f} ms ({nbound / nms:.1%})")
+
+    def bads(cp):
+        pc, inst, comm_t = cp.steps[1]
+        x = list(inst.x)
+        x[0] = (x[0] + 1) % BN256_SCALAR.modulus
+        steps = list(cp.steps)
+        steps[1] = (pc, nova.R1CSInstance(inst.comm_w, x), comm_t)
+        return [("a changed input of the sha256 step",
+                 dataclasses.replace(cp, steps=steps))]
+
+    ncomp = compression(("14.3", "14.3", "14.3"), "supernova.compress",
+                        bound, lambda: sn.compress(npp, nproof),
+                        lambda cp: sn.verify_compressed(npp, cp), bads)
+    check(sorted(ncomp["cp"].spartans) == [0, 1],
+          "the compressed NIVC proof lacks a circuit's Spartan proof")
+    return {"k1": k1,
+            "k6": {"launches": len(timed) + comp["launches"] + len(ntimed)
+                   + ncomp["launches"],
+                   "ms": ms + comp["ms"] + nms + ncomp["ms"],
+                   "bound_ms": bound_ms + comp["bound_ms"] + nbound
+                   + ncomp["bound_ms"], "plain_ms": plain_ms},
+            "times": times, "t_nivc": t_nivc,
+            "t_nivc_compress": ncomp["t_compress"],
+            "t_nivc_verify": ncomp["t_verify"]}
 
 
 def imad_rate(sms: int):
@@ -2132,25 +2410,19 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s)")
 
     # ---- phase 2: main path ----
-    big = []                            # (arity, size) of batched waves
-
-    def recording_hash_batch(field, arity, pres, device=None):
-        big.append((arity, len(pres)))
-        return K.hash_batch(field, arity, pres, device)
-
-    core.hash_batch = recording_hash_batch
     K.launches = 0
-    t0 = time.perf_counter()
-    store = Store(BN256_SCALAR, device=dev)
-    expr = read_with_default_state(store, FIB_PROGRAM)
-    frames = evaluate(None, expr, store, fib_limit(100, 100))
-    t_eval = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    store.hydrate_z_cache()
-    torch.cuda.synchronize()
-    t_hyd = time.perf_counter() - t0
-    launches = K.launches
-    core.hash_batch = K.hash_batch
+    with WaveRecorder() as rec:
+        t0 = time.perf_counter()
+        store = Store(BN256_SCALAR, device=dev)
+        expr = read_with_default_state(store, FIB_PROGRAM)
+        frames = evaluate(None, expr, store, fib_limit(100, 100))
+        t_eval = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        store.hydrate_z_cache()
+        torch.cuda.synchronize()
+        t_hyd = time.perf_counter() - t0
+        launches = K.launches
+    big = rec.waves                     # (arity, size) of batched waves
     check(len(frames) == 800, f"{len(frames)} frames, expected 800")
     check(launches == len(big) and launches > 0,
           f"{launches} launches for {len(big)} batched waves")
@@ -2170,22 +2442,9 @@ def main() -> int:
 
     const_bytes = {a: K.constants(BN256_SCALAR, a, dev).numel() * 4
                    for a in (3, 4, 6, 8)}
-    ms = plain_ms = bound_ms = 0.0
-    bound_by = set()
-    for arity, b in big:
-        x = random_preimages(BN256_SCALAR, arity, b, gen, dev)
-        max_err = max(max_err, compare(BN256_SCALAR, arity, x,
-                                       K.poseidon_hash,
-                                       K.poseidon_hash_plain)[0])
-        k_ms = time_ms(lambda: K.poseidon_hash(BN256_SCALAR, arity, x), 20)
-        p_ms = time_ms(
-            lambda: K.poseidon_hash_plain(BN256_SCALAR, arity, x), 1)
-        b_ms, by = bound.of(BN256_SCALAR, arity, b, const_bytes[arity])
-        print(f"  wave arity {arity} B={b} ({shape_of('poseidon', b)} "
-              f"shape): kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms, bound "
-              f"{b_ms:.6f} ms ({by}), {b_ms / k_ms:.2%} of it")
-        ms, plain_ms, bound_ms = ms + k_ms, plain_ms + p_ms, bound_ms + b_ms
-        bound_by.add(by)
+    ms, plain_ms, bound_ms, err, bound_by = waves_alone(bound, gen, dev,
+                                                        big)
+    max_err = max(max_err, err)
 
     # ---- phase 3: size ----
     for name, b in SIZES:
@@ -2275,18 +2534,33 @@ def main() -> int:
           f"self-check, files), verify in a new process "
           f"{cli['times']['verify (new process)']:.1f} s")
 
-    for part in (fold, cycle, comp, nova_cycle, nivc, cli["k6"]):
+    # ---- phase 14: coprocessors, the trie program and sha256 NIVC ----
+    coproc = phase14(bound, gen, dev)
+    elapsed("14", t_all)
+    t = coproc["times"]
+    print(f"sha256 NIVC (sha256_nivc_1, rc={SHA256_RC}) through the "
+          f"SuperNova cycle: prove {t['prove']:.1f} s + compress "
+          f"{t['compress']:.1f} s + verify {t['verify']:.1f} s (the public "
+          f"parameters' cold build, before, {t['public parameters']:.1f} "
+          f"s); through NIVC: prove + verify {coproc['t_nivc']:.1f} s, "
+          f"compress {coproc['t_nivc_compress']:.1f} s, verify_compressed "
+          f"{coproc['t_nivc_verify']:.1f} s")
+
+    for part in (fold, cycle, comp, nova_cycle, nivc, cli["k6"],
+                 coproc["k6"]):
         for k in ("launches", "ms", "bound_ms"):
             msm[k] += part[k]
     for k in ("launches", "ms", "bound_ms"):
-        sparse[k] += cli["k1"][k]
-    for part in (fold, cycle, nova_cycle, nivc):
+        sparse[k] += cli["k1"][k] + coproc["k1"][k]
+    sparse["plain_ms"] += coproc["k1"]["plain_ms"]
+    sparse["max_abs_err"] = max(sparse["max_abs_err"],
+                                coproc["k1"]["max_abs_err"])
+    for part in (cycle, nova_cycle, nivc, coproc["k6"]):
         msm["plain_ms"] += part["plain_ms"]
-    msm["plain_of"] = (f"the 2^20 commit, "
-                       f"{' and '.join(w for _, w in PHASE8_PLAIN)} of the "
-                       f"Nova fold, step 0's W2 and step 1's T2 of "
-                       f"the cycle fold, step 0's W2 of the Nova cycle, a "
-                       f"2^12 HyperKZG commit of NIVC's compress")
+    msm["plain_of"] = ("the 2^20 commit, step 0's W2 and step 1's T2 of "
+                       "the cycle fold, step 0's W2 of the Nova cycle, a "
+                       "2^12 HyperKZG commit of NIVC's compress, the "
+                       "sha256 step's W1")
 
     print(json.dumps({"kernels": [sparse, dense, msm, folded]}))
     print(f"total {time.perf_counter() - t_all:.1f} s")

@@ -9,7 +9,8 @@ Parity: reference src/cli/mod.rs:42-99, 590-683 — subcommands `repl`,
 `load [--prove]`, `verify <proof-key>`, `inspect <proof-key>`,
 `public-params`, with `--rc`, `--limit`, `--field` flags (defaults
 mirror the reference: rc=10, limit=10^8). The JAX package's `circom`
-subcommand waits for the port of its coprocessors.
+subcommand waits for the port of the circom coprocessor (ROADMAP.md,
+section 1, item 2).
 """
 
 from __future__ import annotations

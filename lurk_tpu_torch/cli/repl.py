@@ -16,9 +16,11 @@ current-env, prove, verify, inspect, inspect-full, defpackage, import,
 in-package, dump-data, def-load-data, defprotocol, prove-protocol,
 verify-protocol, call, chain, help.
 
-NIVC proofs (``supernova`` and ``supernova-fold``) verify with circuit
-0's shape only: a proof with a step of any other circuit index needs
-coprocessors, which are not ported, and is refused.
+The ``Repl``'s ``lang`` (empty unless a caller sets it) is the one every
+prover and verifier uses: an NIVC proof (``supernova`` and
+``supernova-fold``) verifies against circuit 0's shape from the disk
+cache and each coprocessor circuit's shape synthesized on its blank
+frame with the ``lang``'s circuits.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from ..lem import Channel, dummy_channel, evaluation as ev
 from ..lem.eval_step import eval_step
 from ..lem.interpreter import EvalError, Frame
 from ..parser import read_maybe_meta
-from ..proof.multiframe import MultiFrame
+from ..proof.multiframe import MultiFrame, io_scalars
 from ..proof.nova import R1CSShape
 from ..proof.params_cache import cache_base, cached_shape, shape_cache_key
 from ..store.core import ATOM, Ptr, Store, ZPtr
@@ -238,15 +240,9 @@ class Repl:
         elif lp.backend.startswith("supernova"):
             from ..proof import supernova as sn
             pcs = {pc for pc, _, _ in lp.proof.steps}
-            if pcs != {0}:
-                raise ReplError(
-                    f"the proof has steps of circuits {sorted(pcs - {0})}, "
-                    f"which need coprocessors; coprocessors are not ported "
-                    f"yet (ROADMAP.md, section 1, item 8)")
-            lurk_step = sn.SuperNovaProver(lp.rc, self.lang).lurk_step
-            key = shape_cache_key(s.field.name, lp.rc, lurk_step) + "-nivc"
-            shape = self._cached_step_shape(key, lp.rc, lurk_step)
-            pp = sn.SuperNovaPublicParams.setup({0: shape}, dev)
+            shapes = self._nivc_shapes(sn.SuperNovaProver(lp.rc, self.lang),
+                                       pcs)
+            pp = sn.SuperNovaPublicParams.setup(shapes, dev)
             verify = sn.verify_compressed if compressed else sn.verify
         else:
             from ..proof.prover import NovaProver, public_params
@@ -259,6 +255,34 @@ class Repl:
         ok = verify(pp, lp.proof)
         print("✓ Proof verified" if ok else "✗ Proof failed on verification")
         return ok
+
+    def _nivc_shapes(self, prover, pcs) -> Dict[int, R1CSShape]:
+        """The shape of each circuit in ``pcs``: circuit 0's (the uniform
+        step at the prover's rc) from the disk cache, each coprocessor
+        circuit's synthesized on its blank frame with the ``lang``'s
+        circuits."""
+        s = self.store
+        bad = sorted(pc for pc in pcs if not 0 <= pc <= len(self.lang))
+        if bad:
+            raise ReplError(f"the proof has steps of circuits {bad}, but "
+                            f"the language has {len(self.lang)} "
+                            f"coprocessors")
+        synths = self.lang.circuit_synthesizers()
+        shapes = {}
+        for pc in sorted(pcs):
+            if pc == 0:
+                key = shape_cache_key(s.field.name, prover.rc,
+                                      prover.lurk_step) + "-nivc"
+                shapes[0] = self._cached_step_shape(key, prover.rc,
+                                                    prover.lurk_step)
+                continue
+            func = prover._step_func(pc)
+            blank = Frame.blank_frame(func, pc, s)
+            mf = MultiFrame([blank], io_scalars(s, blank.input),
+                            io_scalars(s, blank.output))
+            _, _, cs = mf.instance(func, s, cproc_synthesizers=synths)
+            shapes[pc] = R1CSShape(cs)
+        return shapes
 
     def _cached_step_shape(self, key: str, rc: int, lurk_step):
         """The uniform step shape at ``rc`` from the disk cache (where

@@ -27,8 +27,8 @@ class Coprocessor:
     plumbs env/cont through unchanged unless the coprocessor overrides it.
     ``circuit`` optionally carries the CoCircuit synthesis object (with a
     ``synthesize(synthesizer, not_dummy, inp) -> [AllocatedPtr]``
-    method); without it the circuit consumes the evaluated result as
-    non-deterministic advice.
+    method); without it the coprocessor evaluates but is not provable:
+    synthesizing a frame that runs it raises ``SynthesisError``.
     """
 
     arity: int

@@ -110,6 +110,29 @@ def shape_cache_key(field_name: str, rc: int, func) -> str:
     return h.hexdigest()[:32]
 
 
+def lang_key(lang) -> tuple:
+    """The coprocessors' symbols, sorted: a ``Lang``'s part of the cycle
+    public parameters' cache keys (empty for no ``Lang``)."""
+    if lang is None or not len(lang):
+        return ()
+    return tuple(sorted(str(s) for s, _ in lang.cproc_specs()))
+
+
+def lang_circuits(lang) -> tuple:
+    """A ``Lang``'s coprocessors as the in-memory caches of public
+    parameters key them: each symbol and arity with its circuit's class
+    and attributes (None for a coprocessor with no circuit). Step
+    functions capture the circuits, so two ``Lang`` objects share
+    parameters in memory only when their circuits are alike."""
+    if lang is None:
+        return ()
+    return tuple(
+        (str(sym), c.arity, None if c.circuit is None else (
+            type(c.circuit).__module__, type(c.circuit).__qualname__,
+            repr(sorted(vars(c.circuit).items()))))
+        for sym, c in lang.coprocessors())
+
+
 def save_shape(key: str, shape) -> None:
     """The shape's CSR arrays (:meth:`..proof.nova.R1CSShape.csr`),
     counts and digest, as the JAX package lays them out."""

@@ -13,10 +13,12 @@ Both curves commit on ``device`` (default ``cuda``). Step witnesses
 come from the fork pool of :mod:`.witness_pool` while ``check_steps``
 is off and there are at least 3 chunks (the JAX package's default); the
 time the parent waits for each goes to :mod:`..utils.metrics` as
-``nova_cycle.witness``. Left out of the JAX prover: the resume argument
+``nova_cycle.witness``. A ``Lang``'s coprocessors run inside the
+universal step (IVC: ``make_eval_step(specs, True)``), each through its
+circuit; a coprocessor with no circuit makes the prove raise
+``SynthesisError``. Left out of the JAX prover: the resume argument
 ``init`` of ``prove_incremental``, whose only caller is the chain
-server. Only the empty ``Lang`` is ported: a ``Lang`` with coprocessors
-raises ``NotImplementedError``.
+server.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from typing import Dict, List, Optional, Tuple
 from ..device import resolve_device
 from ..lem import evaluation as ev
 from ..lem import ir
-from ..lem.eval_step import eval_step
+from ..lem.eval_step import make_eval_step
 from ..lem.interpreter import Frame
 from ..store.core import Ptr, Store
 from ..utils import metrics
@@ -41,11 +43,11 @@ from .nova_cycle import (
     CycleProof, CyclePublicParams, CycleSNARK, chain_heads_ok, fold_pending,
 )
 from .nova_cycle import verify as cycle_verify
-from .params_cache import shape_cache_key
-from .supernova import no_coprocessors
+from .params_cache import lang_circuits, lang_key, shape_cache_key
 
 
-def multiframe_step_fn(lurk_step: ir.Func):
+def multiframe_step_fn(lurk_step: ir.Func,
+                       cproc_synthesizers: Optional[Dict] = None):
     """Step callback for the primary augmented circuit: rc chained Lurk
     frame syntheses (multiframe.rs:596-712), inputs and outputs as the
     6-scalar z vector. The STORE travels in step_aux, ``(frames,
@@ -58,7 +60,7 @@ def multiframe_step_fn(lurk_step: ir.Func):
                    for i in range(3)]
         for frame in frames:
             current = synthesize_frame_with_inputs(
-                cs, lurk_step, store, frame, current, None)
+                cs, lurk_step, store, frame, current, cproc_synthesizers)
         out = []
         for ptr in current:
             out.extend((ptr.tag, ptr.hash))
@@ -73,14 +75,12 @@ _PP_CACHE: Dict[tuple, CyclePublicParams] = {}
 def cycle_public_params(store: Store, rc: int, lurk_step: ir.Func,
                         lang: Optional[ev.Lang] = None,
                         device=None) -> CyclePublicParams:
-    """The public parameters of the empty ``Lang`` at ``rc``, with keys
-    on ``device``; cached per process, the shapes on disk. The shapes
-    are synthesized on a nil evaluation padded to rc (the
-    uniform-shape property, pinned by tests)."""
-    no_coprocessors(lang)
+    """The public parameters of ``lang`` at ``rc``, with keys on
+    ``device``; cached per process, the shapes on disk. The shapes are
+    synthesized on a nil evaluation padded to rc (the uniform-shape
+    property, pinned by tests)."""
     dev = resolve_device(device)
-    lang_key = ()
-    key = (store.field.name, rc, lang_key, dev)
+    key = (store.field.name, rc, lang_circuits(lang), dev)
     pp = _PP_CACHE.get(key)
     if pp is not None:
         return pp
@@ -89,9 +89,10 @@ def cycle_public_params(store: Store, rc: int, lurk_step: ir.Func,
     store.hydrate_z_cache()
     mfs = MultiFrame.from_frames(frames, rc, lurk_step, store, lang)
     base = shape_cache_key(store.field.name, rc, lurk_step) + \
-        hashlib.sha256(repr(lang_key).encode()).hexdigest()[:8]
+        hashlib.sha256(repr(lang_key(lang)).encode()).hexdigest()[:8]
+    synths = lang.circuit_synthesizers() if lang is not None else None
     pp = CyclePublicParams.setup(
-        store.field, 6, multiframe_step_fn(lurk_step), mfs[0].z_in,
+        store.field, 6, multiframe_step_fn(lurk_step, synths), mfs[0].z_in,
         (mfs[0].frames, store), cache_base=base, device=dev)
     _PP_CACHE[key] = pp
     return pp
@@ -107,15 +108,15 @@ class CycleNovaProver:
     device: Optional[str] = None
 
     def step_func(self) -> ir.Func:
-        no_coprocessors(self.lang)
-        return eval_step()
+        specs = tuple(self.lang.cproc_specs()) if self.lang else ()
+        return make_eval_step(specs, True)
 
     def evaluate_and_prove(self, store: Store, expr: Ptr,
                            limit: int = 10000
                            ) -> Tuple[CyclePublicParams, CycleProof,
                                       List[Frame]]:
-        no_coprocessors(self.lang)
-        frames = ev.evaluate(None, expr, store, limit)
+        lang_setup = ev.LangSetup.ivc(self.lang) if self.lang else None
+        frames = ev.evaluate(lang_setup, expr, store, limit)
         pp, proof = self.prove_from_frames(store, frames)
         return pp, proof, frames
 

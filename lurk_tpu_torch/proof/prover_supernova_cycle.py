@@ -11,13 +11,15 @@ functionality: reference src/proof/supernova.rs:200-318 via arecibo.
 
 Both curves commit on ``device`` (default ``cuda``). Step witnesses
 come from the fork pool of :mod:`.witness_pool` while ``check_steps``
-is off and there are at least 3 chunks (the JAX package's default). The
-time the parent waits for each step's witness goes to
-:mod:`..utils.metrics` as ``supernova_cycle.witness``.
+is off and there are at least 3 chunks (the JAX package's default), a
+coprocessor's chunk as a pc-0 chunk. The time the parent waits for each
+step's witness goes to :mod:`..utils.metrics` as
+``supernova_cycle.witness``.
 
-Only the empty ``Lang`` (the main path) is ported: a ``Lang`` with
-coprocessors raises ``NotImplementedError`` until ``coproc/`` is
-ported.
+A ``Lang`` adds one primary circuit per coprocessor (pc >= 1), each
+synthesizing its coprocessor's circuit; its public parameters are
+cached under a key that names the ``Lang``'s coprocessors. A
+coprocessor with no circuit makes the prove raise ``SynthesisError``.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from typing import Dict, List, Optional, Tuple
 from ..device import resolve_device
 from ..lem import evaluation as ev
 from ..lem import ir
-from ..lem.eval_step import make_eval_step
+from ..lem.eval_step import make_cprocs_funcs, make_eval_step
 from ..lem.interpreter import Frame
 from ..r1cs.gadgets import alloc_num
 from ..store.core import Ptr, Store
@@ -40,8 +42,8 @@ from . import spartan, witness_pool
 from .multiframe import io_scalars, pad_frames
 from .nova import PublicParams
 from .nova_cycle import fold_pending
-from .params_cache import shape_cache_key
-from .supernova import chunk_frames_nivc, no_coprocessors
+from .params_cache import lang_circuits, lang_key, shape_cache_key
+from .supernova import chunk_frames_nivc
 from .supernova_cycle import (
     SnCycleProof, SnCyclePublicParams, SnCycleSNARK, sn_state1, sn_state2,
 )
@@ -78,30 +80,41 @@ def sn_cycle_public_params(store: Store, rc: int, lurk_step: ir.Func,
                            cprocs: List[ir.Func],
                            lang: Optional[ev.Lang] = None,
                            device=None) -> SnCyclePublicParams:
-    """The public parameters of the empty ``Lang`` at ``rc``, with keys
-    on ``device``; cached per process, the shapes on disk."""
-    no_coprocessors(lang)
+    """The public parameters of ``lang`` at ``rc``, with keys on
+    ``device``; cached per process, the shapes on disk. Circuit 0's
+    shape is synthesized on a nil evaluation padded to rc, each
+    coprocessor circuit's on its blank frame."""
     dev = resolve_device(device)
-    lang_key = ()
-    key = (store.field.name, rc, lang_key, dev)
+    key = (store.field.name, rc, lang_circuits(lang), dev)
     pp = _PP_CACHE.get(key)
     if pp is not None:
         return pp
-    step_fns = [_chunk_step_fn(lurk_step)]
+    synths = lang.circuit_synthesizers() if lang is not None else None
+    step_fns = [_chunk_step_fn(func, synths) for func in [lurk_step, *cprocs]]
     # dummy auxes for shape synthesis
     nil = store.intern_nil()
     frames = ev.evaluate(None, nil, store, rc)
     frames = pad_frames(frames, lurk_step, rc, store, lang)
     store.hydrate_z_cache()
     dummy_auxes = [(frames, 0, store)]
+    for func in cprocs:
+        dummy_auxes.append(([Frame.blank_frame(func, 0, store)], 0, store))
     dummy_z0 = io_scalars(store, frames[0].input)
     base = shape_cache_key(store.field.name, rc, lurk_step) + \
-        hashlib.sha256(repr(lang_key).encode()).hexdigest()[:8]
+        hashlib.sha256(repr(lang_key(lang)).encode()).hexdigest()[:8]
     pp = SnCyclePublicParams.setup(store.field, 6, step_fns, dummy_z0,
                                    dummy_auxes, cache_base=base,
                                    device=dev)
     _PP_CACHE[key] = pp
     return pp
+
+
+def _step_by_pc(pp: SnCyclePublicParams):
+    """One step function for the fork pool: each job's chunk runs the
+    step function of its circuit index."""
+    def step(cs, zi, aux):
+        return pp.cfg1s[aux[0][0].pc].step_fn(cs, zi, aux)
+    return step
 
 
 @dataclasses.dataclass
@@ -114,13 +127,13 @@ class SuperNovaCycleProver:
     device: Optional[str] = None
 
     def setup_funcs(self) -> Tuple[ir.Func, List[ir.Func]]:
-        no_coprocessors(self.lang)
-        return make_eval_step((), False), []
+        specs = tuple(self.lang.cproc_specs()) if self.lang else ()
+        return make_eval_step(specs, False), make_cprocs_funcs(specs)
 
     def evaluate_and_prove(self, store: Store, expr: Ptr,
                            limit: int = 10000):
-        no_coprocessors(self.lang)
-        frames = ev.evaluate(None, expr, store, limit)
+        lang_setup = ev.LangSetup.nivc(self.lang) if self.lang else None
+        frames = ev.evaluate(lang_setup, expr, store, limit)
         pp, proof = self.prove_from_frames(store, frames)
         return pp, proof, frames
 
@@ -148,9 +161,8 @@ class SuperNovaCycleProver:
                                     self.lang, self.device)
         jobs = self.witness_jobs(store, padded)
         snark = SnCycleSNARK(pp, jobs[0][0])
-        # one primary circuit: a Lang with coprocessors raises
-        caches = witness_pool.step_witnesses(store, pp.cfg1s[0].step_fn,
-                                             jobs, self.check_steps)
+        caches = witness_pool.step_witnesses(store, _step_by_pc(pp), jobs,
+                                             self.check_steps)
         for (_, aux), chunk in zip(jobs, padded):
             with metrics.timed("supernova_cycle.witness"):
                 cache = next(caches)

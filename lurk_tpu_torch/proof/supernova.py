@@ -18,10 +18,11 @@ public parameters: W packed once and T as packed words reach K6 with no
 Python ints, and each step's phases go to :mod:`..utils.metrics` under
 ``nova.*``; the prover adds ``supernova.shape``, ``supernova.shape_save``
 and ``supernova.witness`` (each later step's inline synthesis: the JAX
-NIVC prover has no pool). Only the empty ``Lang`` is ported: a ``Lang``
-with coprocessors raises ``NotImplementedError``, so every frame runs
-the universal Lurk step (pc 0). Left out of the JAX module:
-``FoldingConfig``, which nothing reads.
+NIVC prover has no pool). A ``Lang``'s coprocessors each get their own
+circuit (pc >= 1: ``run_cproc`` with the coprocessor's synthesizer), the
+first step of each circuit synthesized in full for its shape; a
+coprocessor with no circuit makes the prove raise ``SynthesisError``.
+Left out of the JAX module: ``FoldingConfig``, which nothing reads.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 from ..curves.weierstrass import CURVE_FOR_FIELD, Affine, Curve
-from ..lem.eval_step import make_eval_step
+from ..lem import ir
+from ..lem.eval_step import make_cprocs_funcs, make_eval_step
 from ..lem.evaluation import Lang, LangSetup, evaluate
 from ..lem.interpreter import Frame
 from ..store.core import Ptr, Store
@@ -44,15 +46,6 @@ from .nova import (
     fold_instance,
 )
 from .params_cache import load_shape, save_shape, shape_cache_key
-
-
-def no_coprocessors(lang: Optional[Lang]) -> None:
-    """Raise for a ``Lang`` with coprocessors: only the empty one is
-    ported."""
-    if lang is not None and len(lang):
-        raise NotImplementedError(
-            "a Lang with coprocessors needs coproc/, which is not ported "
-            "yet (ROADMAP.md, section 1, item 8)")
 
 
 def chunk_frames_nivc(frames: List[Frame], rc: int) -> List[List[Frame]]:
@@ -122,25 +115,29 @@ class NivcProof:
 
 
 class SuperNovaProver:
-    """NIVC prover over the Lurk step (and, in the JAX package, one
-    circuit per coprocessor)."""
+    """NIVC prover over the Lurk step and one circuit per coprocessor."""
 
     def __init__(self, rc: int, lang: Lang, check_steps: bool = False,
                  device=None):
-        no_coprocessors(lang)
         self.rc = rc
         self.lang = lang
         self.check_steps = check_steps
         self.device = device
-        self.lurk_step = make_eval_step((), False)
+        specs = tuple(lang.cproc_specs())
+        self.lurk_step = make_eval_step(specs, False)
+        self.cprocs = make_cprocs_funcs(specs)
 
     def setup(self) -> LangSetup:
-        return LangSetup(self.lurk_step, [], self.lang)
+        return LangSetup(self.lurk_step, self.cprocs, self.lang)
+
+    def _step_func(self, pc: int) -> ir.Func:
+        return self.lurk_step if pc == 0 else self.cprocs[pc - 1]
 
     def steps(self, store: Store, frames: List[Frame]) -> List[NivcStep]:
         """The frames cut into the steps' MultiFrames, a short pc-0
         chunk padded to rc: the step function stutters on
-        Terminal/Error (multiframe.rs:330-346)."""
+        Terminal/Error and on pending Cproc expressions
+        (multiframe.rs:330-346)."""
         steps = []
         for chunk in chunk_frames_nivc(list(frames), self.rc):
             pc = chunk[0].pc
@@ -159,41 +156,56 @@ class SuperNovaProver:
             raise ValueError("no frames to prove")
         store.hydrate_z_cache()
         steps = self.steps(store, frames)
-        # the pc-0 shape from the disk cache, so that repeat proves are
-        # witness-only everywhere; else step 0's full synthesis, saved
+        synths = self.lang.circuit_synthesizers()
+        # the empty Lang's pc-0 shape from the disk cache, so that repeat
+        # proves are witness-only everywhere; else each circuit's shape
+        # from the full synthesis of its first step (pc 0's saved)
+        shapes: Dict[int, R1CSShape] = {}
         skey = None
-        shape = None
-        if not self.check_steps:
+        if not self.check_steps and not len(self.lang):
             skey = shape_cache_key(store.field.name, self.rc,
                                    self.lurk_step) + "-nivc"
-            shape = load_shape(skey, store.field)
-        first = None
-        if shape is None:
+            cached = load_shape(skey, store.field)
+            if cached is not None:
+                shapes[0] = cached
+                skey = None
+        first: Dict[int, Tuple[List[int], List[int]]] = {}
+        for k, step in enumerate(steps):
+            if step.pc in shapes:
+                continue
             with metrics.timed("supernova.shape"):
-                x, w, cs = steps[0].mframe.instance(
-                    self.lurk_step, store, shape_check=self.check_steps)
-                shape = R1CSShape(cs)
-            first = (x, w)
-            if skey is not None:
+                x, w, cs = step.mframe.instance(
+                    self._step_func(step.pc), store,
+                    shape_check=self.check_steps,
+                    cproc_synthesizers=synths)
+                shapes[step.pc] = R1CSShape(cs)
+            first[k] = (x, w)
+            if step.pc == 0 and skey is not None:
                 with metrics.timed("supernova.shape_save"):
-                    save_shape(skey, shape)
-        pp = SuperNovaPublicParams.setup({0: shape}, self.device)
-        rs = RecursiveSNARK(pp.params_for(0))
+                    save_shape(skey, shapes[0])
+        pp = SuperNovaPublicParams.setup(shapes, self.device)
+        # one running accumulator per circuit index
+        snarks = {pc: RecursiveSNARK(pp.params_for(pc)) for pc in shapes}
         proof_steps = []
         for k, step in enumerate(steps):
-            if k == 0 and first is not None:
-                x, w = first
+            if k in first:
+                x, w = first.pop(k)
             else:
                 with metrics.timed("supernova.witness"):
                     x, w, cs = step.mframe.instance(
-                        self.lurk_step, store, shape_check=self.check_steps,
+                        self._step_func(step.pc), store,
+                        shape_check=self.check_steps,
+                        cproc_synthesizers=synths,
                         witness_only=not self.check_steps)
-                if self.check_steps and cs.shape_digest() != shape.digest:
+                if self.check_steps and \
+                        cs.shape_digest() != shapes[step.pc].digest:
                     raise ValueError(f"non-uniform circuit for pc={step.pc}")
+            rs = snarks[step.pc]
             rs.prove_step(x, w, check=self.check_steps)
             inst, comm_t = rs.steps[-1]
             proof_steps.append((step.pc, inst, comm_t))
-        proof = NivcProof(proof_steps, {0: rs.acc_wit},
+        proof = NivcProof(proof_steps,
+                          {pc: rs.acc_wit for pc, rs in snarks.items()},
                           steps[0].mframe.z_in, steps[-1].mframe.z_out)
         return pp, proof
 

@@ -11,15 +11,15 @@ commands. Bytes are compared exactly.
   in-memory ones dropped), and a copy with one changed value is
   rejected. The JAX verifiers' acceptance of these backends' proofs is
   held by ``test_torch_nova_cycle.py`` and ``test_torch_nivc.py``.
-- An NIVC proof with a step of another circuit index is refused with
-  an error that names the missing coprocessors.
+- An NIVC proof with a step of a coprocessor's circuit verifies in a
+  ``Repl`` whose ``Lang`` has that coprocessor, and is refused by one
+  without it.
 - ``tests/test_protocol.py``'s protocol round trip (defprotocol,
   prove-protocol, verify-protocol, at rc = 4 with the default backend)
   and its bad pair, through the port.
 """
 
 import contextlib
-import dataclasses
 import io
 import json
 
@@ -29,7 +29,16 @@ import lurk_tpu.cli.lurk_proof as jax_lurk_proof
 from lurk_tpu_torch.cli import lurk_proof
 from lurk_tpu_torch.cli.repl import Repl, ReplError
 from lurk_tpu_torch.fields import BN256_SCALAR
+from lurk_tpu_torch.lem.circuit import AllocatedPtr
+from lurk_tpu_torch.lem.evaluation import Coprocessor, Lang
+from lurk_tpu_torch.parser import read_with_default_state
 from lurk_tpu_torch.proof import hyperkzg, prover, prover_cycle
+from lurk_tpu_torch.proof.supernova import SuperNovaProver
+from lurk_tpu_torch.r1cs.cs import ConstraintSystem, lc_scale
+from lurk_tpu_torch.r1cs.gadgets import Num, alloc_num
+from lurk_tpu_torch.store.core import Store
+from lurk_tpu_torch.symbol import user_sym
+from lurk_tpu_torch.tags import ExprTag
 from test_torch_field import one_torch_thread  # noqa: F401
 
 PROGRAM = "!(prove (+ 1 2))"
@@ -96,19 +105,54 @@ def test_backend_files_round_trip_and_verify(backend, cache):
         assert not ok and text == "✗ Proof failed on verification\n", key
 
 
-def test_nivc_proof_with_another_circuit_is_refused(cache):
-    repl = Repl(BN256_SCALAR, rc=1, backend="supernova-fold",
-                compress=False, device="cpu")
-    _, out = quiet(repl.load_string, PROGRAM)
-    key = out.split('Proof key: "')[1].split('"')[0]
-    lp = lurk_proof.LurkProof.load(key)
-    pc0, inst, comm_t = lp.proof.steps[0]
-    lp.proof = dataclasses.replace(lp.proof,
-                                   steps=[(1, inst, comm_t)]
-                                   + lp.proof.steps[1:])
+class DoubleCircuit:
+    """The circuit of a one-argument coprocessor: its result is the
+    number twice its argument's digest (one constraint)."""
+
+    def synthesize(self, synth, not_dummy, inp):
+        cs = synth.cs
+        x, env, cont = inp
+        y = alloc_num(cs, 2 * x.hash.value % cs.p)
+        cs.enforce(lc_scale(x.hash.lc, 2, cs.p),
+                   {ConstraintSystem.ONE_VAR: 1}, y.lc)
+        return [AllocatedPtr(Num.constant(cs, int(ExprTag.Num)), y), env,
+                cont]
+
+
+def double_lang() -> Lang:
+    lang = Lang()
+    lang.add_coprocessor(user_sym("double"), Coprocessor(
+        1, lambda store, args: store.num(
+            2 * store.hash_ptr(args[0]).digest % store.field.modulus),
+        DoubleCircuit()))
+    return lang
+
+
+def test_nivc_proof_with_a_coprocessor_circuit_verifies(cache):
+    """An NIVC proof of ``(double 21)`` (pcs [0, 0, 1, 0]: a step of
+    circuit 1) verifies in a ``Repl`` with the ``Lang`` set (circuit 1's
+    shape from its blank frame); a changed copy is rejected, and a
+    ``Repl`` without the ``Lang`` refuses the proof."""
+    store = Store(BN256_SCALAR, device="cpu")
+    lang = double_lang()
+    pp, proof, frames = SuperNovaProver(rc=1, lang=lang, device="cpu") \
+        .evaluate_and_prove(store, read_with_default_state(
+            store, "(double 21)"), limit=50)
+    assert [f.pc for f in frames] == [0, 0, 1, 0]
+    assert store.fetch_num(frames[-1].output[0]) == 42
+    lp = lurk_proof.LurkProof(proof, 1, "bn256", "supernova-fold")
     lp.persist("other-circuit")
-    with pytest.raises(ReplError, match="need coprocessors"):
+    data = json.loads(lp.to_json())
+    (cache / "proofs" / "bad-other-circuit.proof.json").write_text(
+        json.dumps(changed(data, BN256_SCALAR.modulus)))
+    repl = Repl(BN256_SCALAR, rc=1, backend="supernova-fold", device="cpu")
+    with pytest.raises(ReplError, match="has 0 coprocessors"):
         repl.verify_proof_key("other-circuit")
+    repl.lang = lang
+    ok, text = quiet(repl.verify_proof_key, "other-circuit")
+    assert ok and text == "✓ Proof verified\n"
+    ok, text = quiet(repl.verify_proof_key, "bad-other-circuit")
+    assert not ok and text == "✗ Proof failed on verification\n"
 
 
 PROTOCOL_SRC = """

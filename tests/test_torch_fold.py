@@ -41,8 +41,10 @@ from lurk_tpu.curves.weierstrass import BN254_G1 as JAX_BN254
 from lurk_tpu.curves.weierstrass import PALLAS as JAX_PALLAS
 from lurk_tpu.fields import BN256_SCALAR as JAX_BN256
 from lurk_tpu.parser import read_with_default_state as jax_read
+from lurk_tpu.proof import hyperkzg as jax_hyperkzg
 from lurk_tpu.proof import nova as jax_nova
 from lurk_tpu.proof import params_cache as jax_params_cache
+from lurk_tpu.proof import prover as jax_prover
 from lurk_tpu.proof.prover import NovaProver as JaxNovaProver
 from lurk_tpu.proof.transcript import Transcript as JaxTranscript
 from lurk_tpu.store.core import Store as JaxStore
@@ -52,7 +54,7 @@ from lurk_tpu_torch.hostlib import r1cs as hr
 from lurk_tpu_torch.hostlib.r1cs import PackedVec
 from lurk_tpu_torch.lem import eval_step, evaluate
 from lurk_tpu_torch.parser import read_with_default_state
-from lurk_tpu_torch.proof import nova, params_cache
+from lurk_tpu_torch.proof import hyperkzg, nova, params_cache, prover
 from lurk_tpu_torch.proof.multiframe import MultiFrame
 from lurk_tpu_torch.proof.prover import NovaProver
 from lurk_tpu_torch.proof.transcript import Transcript
@@ -67,13 +69,20 @@ P = BN256_SCALAR.modulus
 @pytest.fixture(scope="module")
 def jax_host_paths(tmp_path_factory):
     """A temporary parameter cache (as tests/test_nova.py), the JAX
-    package's Python R1CS and Poseidon trace, and no JAX device mesh."""
+    package's Python R1CS and Poseidon trace, and no JAX device mesh.
+    Both packages' SRS and public parameters start empty in memory: a
+    key takes the length of the SRS already there, which another
+    module of the same process may have grown."""
     os.environ.setdefault("LURK_TPU_CACHE",
                           str(tmp_path_factory.mktemp("pp_cache")))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_native_r1cs, "available", lambda: False)
         mp.setattr(jax_native_poseidon, "available", lambda: False)
         mp.setattr(jax_sharding, "_PROVER_MESH", None)
+        for mod in (jax_hyperkzg, hyperkzg):
+            mp.setattr(mod, "_SRS_MEM", {})
+        for mod in (jax_prover, prover):
+            mp.setattr(mod, "_PP_CACHE", {})
         yield
 
 

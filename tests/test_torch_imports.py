@@ -1,7 +1,7 @@
 """The port imports neither jax nor anything of the JAX package, at run
 time (every module imported in a fresh interpreter) and in its source
-(every import statement of the package, of chip_smoke.py and of
-scripts/torch_host_timings.py)."""
+(every import statement of the package, of chip_smoke.py and of the
+port's scripts)."""
 
 import ast
 import pathlib
@@ -14,7 +14,8 @@ from test_torch_field import one_torch_thread  # noqa: F401
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "lurk_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_host_timings.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_host_timings.py",
+    ROOT / "scripts" / "torch_sha256_nivc.py"]
 
 
 def _module_names():

@@ -11,7 +11,8 @@ against the JAX package on the CPU. Integers only: tolerance 0.
 - The JAX ``verify_compressed`` accepts the port's compressed proof, as
   the port's does; both reject it after a changed step input and with
   no Spartan proofs.
-- A ``Lang`` with coprocessors raises ``NotImplementedError``.
+- A coprocessor with no circuit makes the prove raise
+  ``SynthesisError``.
 
 The JAX side proves in a child process (its host C++ built into
 ``$LURK_TPU_CACHE`` in grandchildren meanwhile) while the port proves
@@ -42,6 +43,7 @@ from lurk_tpu_torch.lem.evaluation import Coprocessor, Lang
 from lurk_tpu_torch.parser import read_with_default_state
 from lurk_tpu_torch.proof import nova
 from lurk_tpu_torch.proof import supernova as sn
+from lurk_tpu_torch.r1cs.cs import SynthesisError
 from lurk_tpu_torch.store.core import Store
 from lurk_tpu_torch.symbol import Symbol
 from test_torch_compress import spartan_to_jax
@@ -211,9 +213,15 @@ def test_changed_compressed_proof_rejected_by_both(proofs, change):
     assert not jax_sn.verify_compressed(proofs["jpp"], compressed_to_jax(bad))
 
 
-def test_a_lang_with_coprocessors_is_not_ported():
+def test_a_coprocessor_without_a_circuit_is_not_provable():
+    """A coprocessor step whose coprocessor has no circuit: the prove
+    raises ``SynthesisError`` and binds no unconstrained advice."""
     lang = Lang()
-    lang.add_coprocessor(Symbol.sym(["cproc", "dumb"]),
-                         Coprocessor(0, lambda store, args: args))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sn.SuperNovaProver(rc=1, lang=lang, device="cpu")
+    sym = Symbol.sym(["cproc", "dumb"])
+    lang.add_coprocessor(sym, Coprocessor(0, lambda store, args:
+                                          store.num(42)))
+    store = Store(BN256_SCALAR, device="cpu")
+    prover = sn.SuperNovaProver(rc=1, lang=lang, device="cpu")
+    with pytest.raises(SynthesisError, match="no circuit synthesizer"):
+        prover.evaluate_and_prove(store, store.list([store.intern_symbol(
+            sym)]), limit=50)

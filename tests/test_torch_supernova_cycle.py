@@ -31,6 +31,7 @@ import pytest
 
 import lurk_tpu.native.poseidon as jax_native_poseidon
 import lurk_tpu.parallel.sharding as jax_sharding
+import lurk_tpu.proof.hyperkzg as jax_hyperkzg
 import lurk_tpu.proof.nova as jax_nova
 import lurk_tpu.proof.nova_cycle as jax_nova_cycle
 import lurk_tpu.proof.params_cache as jax_params_cache
@@ -46,9 +47,10 @@ from lurk_tpu_torch.fields import BN256_SCALAR
 from lurk_tpu_torch.hostlib.r1cs import PackedVec
 from lurk_tpu_torch.lem.evaluation import Coprocessor, Lang
 from lurk_tpu_torch.parser import read_with_default_state
-from lurk_tpu_torch.proof import nova, params_cache, witness_pool
+from lurk_tpu_torch.proof import hyperkzg, nova, params_cache, witness_pool
 from lurk_tpu_torch.proof import prover_supernova_cycle as psc
 from lurk_tpu_torch.proof import supernova_cycle as sc
+from lurk_tpu_torch.r1cs.cs import SynthesisError
 from lurk_tpu_torch.store.core import Store
 from lurk_tpu_torch.symbol import Symbol
 from test_torch_field import one_torch_thread  # noqa: F401
@@ -115,12 +117,19 @@ def start_jax_child(out_path, program: str) -> subprocess.Popen:
 def jax_paths(tmp_path_factory):
     """The suite's parameter cache, the JAX package's Python Poseidon
     (its C++ is not compiled here) and no JAX device mesh; its other host
-    C++ comes from the cache that the JAX child fills."""
+    C++ comes from the cache that the JAX child fills. Both packages'
+    SRS and cycle public parameters start empty in memory: a key takes
+    the length of the SRS already there, which another module of the
+    same process may have grown."""
     os.environ.setdefault("LURK_TPU_CACHE",
                           str(tmp_path_factory.mktemp("pp_cache")))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_native_poseidon, "available", lambda: False)
         mp.setattr(jax_sharding, "_PROVER_MESH", None)
+        for mod in (jax_hyperkzg, hyperkzg):
+            mp.setattr(mod, "_SRS_MEM", {})
+        for mod in (jax_psc, psc):
+            mp.setattr(mod, "_PP_CACHE", {})
         yield
 
 
@@ -318,10 +327,16 @@ def test_shape_files_read_back_by_both_packages(proofs, monkeypatch):
         assert len(got) == 1 and got <= want
 
 
-def test_a_lang_with_coprocessors_is_not_ported():
+def test_a_coprocessor_without_a_circuit_is_not_provable():
+    """The public parameters of a ``Lang`` whose coprocessor has no
+    circuit: synthesizing that circuit's shape raises
+    ``SynthesisError``."""
     lang = Lang()
-    lang.add_coprocessor(Symbol.sym(["cproc", "dumb"]),
-                         Coprocessor(0, lambda store, args: args))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        psc.SuperNovaCycleProver(rc=1, lang=lang, device="cpu") \
-            .setup_funcs()
+    sym = Symbol.sym(["cproc", "dumb"])
+    lang.add_coprocessor(sym, Coprocessor(0, lambda store, args:
+                                          store.num(42)))
+    store = Store(BN256_SCALAR, device="cpu")
+    prover = psc.SuperNovaCycleProver(rc=1, lang=lang, device="cpu")
+    with pytest.raises(SynthesisError, match="no circuit synthesizer"):
+        prover.evaluate_and_prove(store, store.list([store.intern_symbol(
+            sym)]), limit=50)
