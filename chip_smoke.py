@@ -111,10 +111,11 @@ Phases, each fatal on failure:
      plain version; compress_cycle (HyperKZG through K6, the IPA on the
      host) and verify_compressed_cycle accept, and reject a changed
      sumcheck value;
-  12. NIVC (the JAX REPL's ``supernova`` backend), on phase 2's store:
+  12. NIVC (the JAX REPL's ``supernova`` backend), on the first
+     PHASE12_FRAMES frames of phase 2's store:
      SuperNovaProver(rc=100, Lang(), cuda).prove_from_frames, its
-     ``-nivc`` shape built and saved in the prove (timed apart), 7
-     witnesses inline, W and T of 8 steps through K6 (16 launches);
+     ``-nivc`` shape built and saved in the prove (timed apart), 3
+     witnesses inline, W and T of 4 steps through K6 (8 launches);
      verify (2 launches) accepts and rejects a changed final witness
      entry; each commit's kernel timed alone; compress and
      verify_compressed accept, and reject a changed step input and a
@@ -149,7 +150,19 @@ Phases, each fatal on failure:
      launches), supernova.compress and verify_compressed with a changed
      input of the sha256 step; prove, compress and verify seconds
      beside PERF.md's prediction. Phase 14's launches and times are in
-     the kernels line.
+     the kernels line;
+  15. the circom coprocessor: a square chain of 16,384 rows
+     (x_{i+1} = x_i * x_i, circom's wire order, over its bn128 prime)
+     written as ``.r1cs`` and ``.wtns`` and packaged by ``python -m
+     lurk_tpu_torch.cli circom`` in a child process, loaded, and
+     ``(square_chain 7)`` evaluated on a Store(BN256, cuda) to
+     7^(2^16384) mod r; SuperNovaProver(rc=10) proves it (both shapes
+     cold and timed apart, 6 K6 launches), verify (4 launches) accepts
+     and rejects a changed entry of the circom circuit's final W, the
+     circom step's W equals the plain version, supernova.compress and
+     verify_compressed accept and reject a changed input of the circom
+     step; prove, compress and verify seconds beside PERF.md's
+     prediction. Its K6 launches and times are in the kernels line.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -238,6 +251,10 @@ STEP_RC = 100                  # fib(100)'s 800 frames in 8 folding steps
 # and so each commit's width, is the same at 200 frames); no commit of
 # it is held against the plain version since phase 14 came
 PHASE8_FRAMES = 200
+# phase 12 (NIVC): the frames it folds, cut from 800 to pay for phase 15
+# (the same shape and commit widths at 400 frames, 3 inline witnesses
+# instead of 7)
+PHASE12_FRAMES = 400
 CHECK_RC = 5
 
 
@@ -1760,8 +1777,9 @@ def phase11(bound, store, frames) -> dict:
 
 def phase12(bound, store, frames) -> dict:
     """NIVC on the card (the JAX REPL's ``supernova`` backend):
-    SuperNovaProver(rc=100, Lang(), cuda).prove_from_frames on phase 2's
-    hydrated fib(100), its ``-nivc`` shape built and saved in the prove;
+    SuperNovaProver(rc=100, Lang(), cuda).prove_from_frames on
+    ``frames`` (the first PHASE12_FRAMES of phase 2's hydrated fib(100)),
+    its ``-nivc`` shape built and saved in the prove;
     verify and a proof with one final witness entry changed; compress
     and verify_compressed with a changed step input and with no Spartan
     proofs; each commit's kernel timed alone, one HyperKZG chain commit
@@ -1786,8 +1804,9 @@ def phase12(bound, store, frames) -> dict:
         poseidon = (K.launches, K.dense_launches, K.folded_launches)
         n_steps = len(proof.steps)
         shape = pp.shapes[0]
-        check(n_steps == len(frames) // STEP_RC == 8,
-              f"{n_steps} folding steps, expected 8")
+        check(n_steps == len(frames) // STEP_RC == PHASE12_FRAMES // STEP_RC,
+              f"{n_steps} folding steps, expected "
+              f"{PHASE12_FRAMES // STEP_RC}")
         check(by == {"bn254-g1": 2 * n_steps}, f"MSM launches {by} in the "
               f"prove, expected {2 * n_steps} on BN254 (W and T a step)")
         check(poseidon == (0, 0, 0), f"Poseidon launches {poseidon} in the "
@@ -1803,7 +1822,8 @@ def phase12(bound, store, frames) -> dict:
         check(len(times["supernova.shape"]) == 1, "the -nivc shape was not "
               "built (the parameter cache starts cold)")
         print(f"phase 12.1: SuperNovaProver(rc={STEP_RC}, Lang(), cuda)"
-              f".prove_from_frames(fib(100)): {n_steps} steps in "
+              f".prove_from_frames(fib(100)'s first {len(frames)} frames):"
+              f" {n_steps} steps in "
               f"{t_prove:.1f} s; the -nivc shape {shape.num_constraints} "
               f"constraints, {shape.num_aux} aux, built in "
               f"{times['supernova.shape'][0]:.1f} s (step 0's full "
@@ -2239,6 +2259,220 @@ def phase14(bound, gen, dev) -> dict:
             "t_nivc_verify": ncomp["t_verify"]}
 
 
+# phase 15's circom gadget, each part with the range PERF.md section 5
+# predicted before its first run on the card
+CIRCOM_ROWS = 1 << 14           # x_{i+1} = x_i * x_i
+CIRCOM_REF = "lurk-port/square_chain"
+CIRCOM_RC = 10
+CIRCOM_PREDICTED = {"shapes": "2-5", "prove": "5-10", "verify": "0.5-1.5",
+                    "compress": "2-5", "verify_compressed": "1-2"}
+
+
+def write_r1cs(path: Path, prime: int, constraints, n_wires: int,
+               n_pub_out: int, n_pub_in: int) -> None:
+    """An iden3 ``.r1cs`` file (version 1: the header section, then the
+    constraints section; labels are not written) with 32-byte field
+    elements."""
+    import struct
+    fs = 32
+
+    def lc_bytes(lc):
+        return struct.pack("<I", len(lc)) + b"".join(
+            struct.pack("<I", w) + (c % prime).to_bytes(fs, "little")
+            for w, c in lc.items())
+
+    header = struct.pack("<I", fs) + prime.to_bytes(fs, "little") + \
+        struct.pack("<IIIIQI", n_wires, n_pub_out, n_pub_in, 0, n_wires,
+                    len(constraints))
+    body = b"".join(lc_bytes(a) + lc_bytes(b) + lc_bytes(c)
+                    for a, b, c in constraints)
+    path.write_bytes(b"r1cs" + struct.pack("<II", 1, 2)
+                     + struct.pack("<IQ", 1, len(header)) + header
+                     + struct.pack("<IQ", 2, len(body)) + body)
+
+
+def write_square_chain(folder: Path, rows: int, x: int, prime: int) -> int:
+    """``square_chain.r1cs``: ``rows`` constraints x_{i+1} = x_i * x_i in
+    circom's wire order (0 ONE, 1 the public output x_rows, 2 the public
+    input x_0, then x_1 .. x_{rows-1}), and ``square_chain.wtns``, its
+    witness at x. Returns x_rows."""
+    from lurk_tpu_torch.coproc.circom import write_wtns
+
+    def wire(i):
+        return 2 if i == 0 else (1 if i == rows else 2 + i)
+    folder.mkdir(parents=True, exist_ok=True)
+    write_r1cs(folder / "square_chain.r1cs", prime,
+               [({wire(i): 1}, {wire(i): 1}, {wire(i + 1): 1})
+                for i in range(rows)], rows + 2, 1, 1)
+    xs = [x]
+    for _ in range(rows):
+        xs.append(xs[-1] * xs[-1] % prime)
+    write_wtns(folder / "square_chain.wtns", [1, xs[-1], x] + xs[1:-1],
+               prime)
+    return xs[-1]
+
+
+def phase15(bound, dev) -> dict:
+    """The circom coprocessor on the card. 15.1: a square chain of
+    CIRCOM_ROWS rows over circom's bn128 prime (BN256's scalar field)
+    written in the iden3 formats, packaged by ``python -m
+    lurk_tpu_torch.cli circom`` in a child process and loaded;
+    ``(square_chain 7)`` read and evaluated on a Store(BN256, cuda), its
+    result 7^(2^CIRCOM_ROWS). 15.2: SuperNovaProver(rc=CIRCOM_RC) proves
+    it (both shapes built cold and timed apart, W and T of 3 steps
+    through K6); verify (W and E of 2 circuits) and a changed entry of
+    the circom circuit's final W; the circom step's W against the plain
+    version. 15.3-15.5: supernova.compress and verify_compressed with a
+    changed input of the circom step."""
+    from lurk_tpu_torch.coproc.circom import CircomGadget, circom_coprocessor
+    from lurk_tpu_torch.fields import BN256_SCALAR
+    from lurk_tpu_torch.hostlib.r1cs import PackedVec
+    from lurk_tpu_torch.lem.evaluation import Lang, LangSetup, evaluate
+    from lurk_tpu_torch.msm import kernel as M
+    from lurk_tpu_torch.parser import read_with_default_state
+    from lurk_tpu_torch.proof import hyperkzg as hk
+    from lurk_tpu_torch.proof import nova
+    from lurk_tpu_torch.proof import supernova as sn
+    from lurk_tpu_torch.store.core import Store
+    from lurk_tpu_torch.symbol import user_sym
+    from lurk_tpu_torch.utils import metrics
+
+    # ---- 15.1: the gadget, packaged by the CLI, and its evaluation ----
+    r = BN256_SCALAR.modulus
+    t_start = time.perf_counter()
+    src = Path(os.environ["LURK_TPU_CACHE"]) / "square_chain_src"
+    expect = write_square_chain(src, CIRCOM_ROWS, 7, r)
+    check(expect == pow(7, 2 ** CIRCOM_ROWS, r),
+          "the written witness's output is not 7^(2^rows)")
+    cli = subprocess.run(
+        [sys.executable, "-m", "lurk_tpu_torch.cli", "circom", str(src),
+         "--name", CIRCOM_REF], capture_output=True, text=True,
+        cwd=Path(__file__).resolve().parent, timeout=300)
+    check(cli.returncode == 0, f"the circom subcommand exited "
+          f"{cli.returncode}: {cli.stderr[-2000:]}")
+    check(cli.stdout.startswith("Gadget packaged at "),
+          f"the circom subcommand printed {cli.stdout!r}")
+    gadget = CircomGadget.load(CIRCOM_REF)
+    check(gadget.r1cs.prime == r and len(gadget.r1cs.constraints)
+          == CIRCOM_ROWS and gadget.static_wtns is not None,
+          "the packaged gadget is not the written one")
+    lang = Lang()
+    lang.add_coprocessor(user_sym("square_chain"),
+                         circom_coprocessor(gadget))
+    store = Store(BN256_SCALAR, device=dev)
+    t0 = time.perf_counter()
+    frames = evaluate(LangSetup.nivc(lang), read_with_default_state(
+        store, "(square_chain 7)"), store, 100)
+    t_eval = time.perf_counter() - t0
+    check([f.pc for f in frames] == [0, 0, 1, 0],
+          f"pcs {[f.pc for f in frames]}, expected [0, 0, 1, 0]")
+    check(store.fetch_num(frames[-1].output[0]) == expect,
+          "(square_chain 7) is not 7^(2^rows)")
+    print(f"phase 15.1: {CIRCOM_REF} ({CIRCOM_ROWS} rows over bn128) "
+          f"packaged by `python -m lurk_tpu_torch.cli circom` "
+          f"({cli.stdout.strip()}); (square_chain 7) evaluated in "
+          f"{t_eval:.2f} s (the witness checked against the r1cs): "
+          f"{len(frames)} frames, 7^(2^{CIRCOM_ROWS}) mod r")
+
+    # ---- 15.2: the NIVC proof ----
+    # the key as a new process sizes it, from the SRS on disk
+    hk._SRS_MEM.clear()
+    prover = sn.SuperNovaProver(rc=CIRCOM_RC, lang=lang, device=dev)
+    times = {}
+    metrics.drain()
+    with CommitRecorder() as rec:
+        reset_counts()
+        t0 = time.perf_counter()
+        pp, proof = prover.prove_from_frames(store, frames)
+        torch.cuda.synchronize()
+        times["prove"] = time.perf_counter() - t0
+        by = dict(M.launches_by_curve)
+        pcs = [pc for pc, _, _ in proof.steps]
+        shape_s = metrics.values("supernova.shape")
+        times["shapes"] = sum(shape_s)
+        s0, s1 = pp.shapes[0], pp.shapes[1]
+        check(pcs == [0, 1, 0], f"steps of circuits {pcs}, expected "
+              f"[0, 1, 0]")
+        check(len(shape_s) == 2, f"{len(shape_s)} shapes built in the "
+              f"prove, expected 2 (cold)")
+        check(by == {"bn254-g1": 6}, f"MSM launches {by} in the prove, "
+              f"expected 6 on BN254 (W and T of 3 steps)")
+        # the circom step's W is the third commit
+        key, vec, point = rec.records[2]
+        check(vec.n == s1.num_aux, "the third commit is not the circom "
+              "step's W")
+        print(f"phase 15.2: SuperNovaProver(rc={CIRCOM_RC}, circom Lang, "
+              f"cuda).prove_from_frames: {len(pcs)} steps (circuits {pcs}) "
+              f"in {times['prove']:.1f} s, the shapes cold in "
+              + " + ".join(f"{t:.1f}" for t in shape_s)
+              + f" s (circuit 0: {s0.num_constraints} constraints, "
+              f"{s0.num_aux} aux; the circom circuit: {s1.num_constraints}"
+              f" constraints, {s1.num_aux} aux); key 2^"
+              f"{len(pp.ck.gens).bit_length() - 1}; MSM launches {by}")
+        reset_counts()
+        t0 = time.perf_counter()
+        ok = sn.verify(pp, proof)
+        torch.cuda.synchronize()
+        times["verify"] = time.perf_counter() - t0
+        vby = dict(M.launches_by_curve)
+        check(ok, "supernova.verify rejects the circom NIVC proof")
+        check(vby == {"bn254-g1": 4}, f"MSM launches {vby} in the verify, "
+              f"expected 4 (W and E of 2 circuits)")
+        records = list(rec.records)
+    wit = proof.final_witnesses[1]
+    bad_w = PackedVec(wit.w.arr.copy(), wit.w.n, wit.w.p)
+    bad_w[wit.w.n // 2] = (bad_w[wit.w.n // 2] + 1) % wit.w.p
+    finals = dict(proof.final_witnesses)
+    finals[1] = nova.RelaxedWitness(bad_w, wit.e)
+    check(not sn.verify(pp, dataclasses.replace(proof,
+                                                final_witnesses=finals)),
+          "verify accepts a proof whose circom circuit's final W was "
+          "changed")
+    plain, plain_ms = plain_commit(key.curve, key.table(),
+                                   vec.arr.view(np.uint32).reshape(vec.n, 8))
+    check(plain == point, "the circom step's W commit differs from the "
+          "plain version")
+    timed = kernel_alone(bound, records)
+    check(len(timed) == 10, f"{len(timed)} commits timed, expected 10")
+    print_classes("prove", timed[:6])
+    print_classes("verify", timed[6:])
+    ms, bound_ms = sum(t[2] for t in timed), sum(t[3] for t in timed)
+    print(f"phase 15.2: verify accepts ({times['verify']:.1f} s, MSM "
+          f"launches {vby}) and rejects a changed entry of the circom "
+          f"circuit's final W; the circom step's W ({vec.n} scalars) equals "
+          f"the plain version on the card ({plain_ms:.1f} ms, host clock); "
+          f"the {len(timed)} commits' kernels {ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({bound_ms / ms:.1%})")
+
+    # ---- 15.3-15.5: compression ----
+    def bads(cp):
+        k = [pc for pc, _, _ in cp.steps].index(1)
+        pc, inst, comm_t = cp.steps[k]
+        x = list(inst.x)
+        x[0] = (x[0] + 1) % r
+        steps = list(cp.steps)
+        steps[k] = (pc, nova.R1CSInstance(inst.comm_w, x), comm_t)
+        return [("a changed input of the circom step",
+                 dataclasses.replace(cp, steps=steps))]
+
+    comp = compression(("15.3", "15.4", "15.5"), "supernova.compress",
+                       bound, lambda: sn.compress(pp, proof),
+                       lambda cp: sn.verify_compressed(pp, cp), bads)
+    check(sorted(comp["cp"].spartans) == [0, 1],
+          "the compressed proof lacks a circuit's Spartan proof")
+    times["compress"] = comp["t_compress"]
+    times["verify_compressed"] = comp["t_verify"]
+    print("phase 15: the circom NIVC proof, seconds (host clock): "
+          + ", ".join(f"{k} {v:.1f} (predicted {CIRCOM_PREDICTED[k]})"
+                      for k, v in times.items())
+          + f"; phase 15 in all {time.perf_counter() - t_start:.1f} s")
+    return {"k6": {"launches": len(timed) + comp["launches"],
+                   "ms": ms + comp["ms"],
+                   "bound_ms": bound_ms + comp["bound_ms"],
+                   "plain_ms": plain_ms},
+            "times": times}
+
+
 def imad_rate(sms: int):
     """(32-bit IMAD per second, SM clock in MHz under that load) from
     csrc/imad_rate.cu: CUDA events over IMAD_LAUNCHES back-to-back
@@ -2518,9 +2752,10 @@ def main() -> int:
     elapsed("11", t_all)
 
     # ---- phase 12: NIVC, its compression and verifiers ----
-    nivc = phase12(bound, store, frames)
+    nivc = phase12(bound, store, frames[:PHASE12_FRAMES])
     elapsed("12", t_all)
-    for name, part in (("the Nova cycle", nova_cycle), ("NIVC", nivc)):
+    for name, part in (("the Nova cycle", nova_cycle),
+                       (f"NIVC (its first {PHASE12_FRAMES} frames)", nivc)):
         print(f"fib(100) through {name}: prove {part['t_prove']:.1f} s + "
               f"compress {part['t_compress']:.1f} s + verify "
               f"{part['t_verify']:.1f} s")
@@ -2546,8 +2781,17 @@ def main() -> int:
           f"compress {coproc['t_nivc_compress']:.1f} s, verify_compressed "
           f"{coproc['t_nivc_verify']:.1f} s")
 
+    # ---- phase 15: the circom coprocessor, a 16,384-row gadget ----
+    circ = phase15(bound, dev)
+    elapsed("15", t_all)
+    t = circ["times"]
+    print(f"circom NIVC ({CIRCOM_ROWS} rows, rc={CIRCOM_RC}): prove "
+          f"{t['prove']:.1f} s (its shapes {t['shapes']:.1f}) + verify "
+          f"{t['verify']:.1f} s; compress {t['compress']:.1f} s, "
+          f"verify_compressed {t['verify_compressed']:.1f} s")
+
     for part in (fold, cycle, comp, nova_cycle, nivc, cli["k6"],
-                 coproc["k6"]):
+                 coproc["k6"], circ["k6"]):
         for k in ("launches", "ms", "bound_ms"):
             msm[k] += part[k]
     for k in ("launches", "ms", "bound_ms"):
@@ -2555,12 +2799,12 @@ def main() -> int:
     sparse["plain_ms"] += coproc["k1"]["plain_ms"]
     sparse["max_abs_err"] = max(sparse["max_abs_err"],
                                 coproc["k1"]["max_abs_err"])
-    for part in (cycle, nova_cycle, nivc, coproc["k6"]):
+    for part in (cycle, nova_cycle, nivc, coproc["k6"], circ["k6"]):
         msm["plain_ms"] += part["plain_ms"]
     msm["plain_of"] = ("the 2^20 commit, step 0's W2 and step 1's T2 of "
                        "the cycle fold, step 0's W2 of the Nova cycle, a "
                        "2^12 HyperKZG commit of NIVC's compress, the "
-                       "sha256 step's W1")
+                       "sha256 step's W1, the circom step's W")
 
     print(json.dumps({"kernels": [sparse, dense, msm, folded]}))
     print(f"total {time.perf_counter() - t_all:.1f} s")

@@ -8,9 +8,10 @@ to the CPU.
 Parity: reference src/cli/mod.rs:42-99, 590-683 — subcommands `repl`,
 `load [--prove]`, `verify <proof-key>`, `inspect <proof-key>`,
 `public-params`, with `--rc`, `--limit`, `--field` flags (defaults
-mirror the reference: rc=10, limit=10^8). The JAX package's `circom`
-subcommand waits for the port of the circom coprocessor (ROADMAP.md,
-section 1, item 2).
+mirror the reference: rc=10, limit=10^8) — and src/cli/circom.rs:
+`circom <folder> --name <AUTHOR>/<NAME> [--prime P]` packages a compiled
+circom gadget under ``$LURK_TPU_CACHE/circom``, as the JAX CLI does
+(the same files, message and exit codes; ``--device`` does not apply).
 """
 
 from __future__ import annotations
@@ -93,10 +94,28 @@ def main(argv=None) -> int:
     p_pp.add_argument("key", nargs="?", default=None,
                       help="cache entry name (for remove/show)")
 
+    p_circom = sub.add_parser(
+        "circom", help="package a compiled circom gadget "
+                       "(cli/circom.rs parity)")
+    p_circom.add_argument("folder", type=Path,
+                          help="folder with <NAME>.r1cs (+.wasm/.wtns) "
+                               "or <NAME>.circom source")
+    p_circom.add_argument("--name", required=True,
+                          help="gadget reference <AUTHOR>/<NAME>")
+    p_circom.add_argument("--prime", default="vesta",
+                          help="circom prime (base field of the proof "
+                               "curve)")
+
     args = parser.parse_args(argv)
 
     if args.command == "public-params":
         return public_params(args.action, args.key)
+    if args.command == "circom":
+        from ..coproc.circom import create_circom_gadget
+        dest = create_circom_gadget(args.folder, args.name,
+                                    field=args.prime)
+        print(f"Gadget packaged at {dest}")
+        return 0
     try:
         resolve_device(args.device)
     except RuntimeError as e:

@@ -1,3 +1,4 @@
-"""Coprocessors: the sha256 and trie coprocessors and the gadgets a
-coprocessor circuit builds Lurk data with (the port of the JAX
-package's ``coproc/``, part A)."""
+"""Coprocessors: the sha256, trie and circom coprocessors, the gadgets a
+coprocessor circuit builds Lurk data with, and the wasm interpreter and
+witness calculator of circom gadgets (the port of the JAX package's
+``coproc/``)."""

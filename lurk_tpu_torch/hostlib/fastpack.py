@@ -25,6 +25,9 @@ def _lib():
     lib.lurk_unpack_ints.argtypes = [ctypes.c_void_p, ctypes.c_ssize_t,
                                      ctypes.py_object]
     lib.lurk_unpack_ints.restype = ctypes.c_int
+    lib.lurk_lc_matrix.argtypes = [ctypes.py_object, ctypes.c_int] + \
+        [ctypes.c_void_p] * 3 + [ctypes.c_ssize_t]
+    lib.lurk_lc_matrix.restype = ctypes.c_ssize_t
     return lib
 
 
@@ -46,3 +49,19 @@ def unpack_ints(limbs: np.ndarray, n: int) -> List[int]:
     out: List[int] = [None] * n
     _lib().lurk_unpack_ints(arr.ctypes.data, n, out)
     return out
+
+
+def lc_matrix(rows: list, which: int):
+    """Matrix ``which`` (0, 1, 2: A, B, C) of R1CS rows (a list of
+    ``(A, B, C)`` tuples of ``{variable: coefficient}`` dicts): ``int64``
+    entries per row, then the rows' variables, each LC's in ascending
+    order, as ``uint64``, and their coefficients as the dicts hold them,
+    packed (``uint64[4 n]``)."""
+    lib = _lib()
+    counts = np.empty(len(rows), dtype=np.int64)
+    n = lib.lurk_lc_matrix(rows, which, counts.ctypes.data, None, None, 0)
+    cols = np.empty(n, dtype=np.uint64)
+    coefs = np.empty(4 * n, dtype=np.uint64)
+    lib.lurk_lc_matrix(rows, which, counts.ctypes.data, cols.ctypes.data,
+                       coefs.ctypes.data, n)
+    return counts, cols, coefs

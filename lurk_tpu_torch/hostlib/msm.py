@@ -9,7 +9,6 @@ oracle is :meth:`..curves.weierstrass.Curve.pippenger`.
 from __future__ import annotations
 
 import ctypes
-import math
 import os
 from typing import Sequence
 
@@ -27,9 +26,17 @@ def pack_points(points: Sequence[Affine]) -> np.ndarray:
     return points_to_words(points).view(np.uint64).reshape(len(points), 8)
 
 
-def window_bits(n: int) -> int:
-    """The JAX package's window width for n scalars."""
-    return 3 if n < 32 else min(16, max(4, int(math.log2(n)) - 2))
+def window_bits(n: int, scalar_bits: int) -> int:
+    """The window width of least work for n non-zero scalars: in each
+    of the ceil(bits / c) windows a mixed addition a scalar (about 11
+    field products) and two full additions a bucket for the running sums
+    (about 16 each). The JAX package takes log2(n) - 2 whatever the
+    zeros, which at an IPA round's 2^15 scalars, half of them 0, does
+    about a third more work; the point is the same at any width."""
+    if n < 32:
+        return 3
+    return min(range(4, 17), key=lambda c: -(-scalar_bits // c)
+               * (11 * n + 32 * ((1 << c) - 1)))
 
 
 def msm(curve: Curve, scalars: np.ndarray, points: np.ndarray) -> Affine:
@@ -49,10 +56,11 @@ def msm(curve: Curve, scalars: np.ndarray, points: np.ndarray) -> Affine:
     pts = np.ascontiguousarray(points[:n], dtype=np.uint64)
     scs = np.ascontiguousarray(scalars, dtype=np.uint64)
     out = np.zeros(12, dtype=np.uint64)
+    nonzero = int(np.count_nonzero(scs.reshape(n, 4).any(axis=1)))
+    bits = curve.scalar.num_bits
     lib.lurk_msm(mod.ctypes.data, rsq.ctypes.data, pts.ctypes.data,
-                 scs.ctypes.data, n, window_bits(n),
-                 min(32, os.cpu_count() or 1), curve.scalar.num_bits,
-                 out.ctypes.data)
+                 scs.ctypes.data, n, window_bits(nonzero, bits),
+                 min(32, os.cpu_count() or 1), bits, out.ctypes.data)
     x, y, z = (sum(int(w) << (64 * i) for i, w in enumerate(out[k:k + 4]))
                for k in (0, 4, 8))
     return None if z == 0 else curve.jac_to_affine((x, y, z))

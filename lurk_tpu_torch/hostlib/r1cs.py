@@ -15,6 +15,7 @@ vectors cross the boundary as packed 4 x 64-bit little-endian limbs
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 from typing import Dict, List, Sequence, Tuple
 
@@ -22,27 +23,38 @@ import numpy as np
 
 from .. import native
 from . import r2, to_limbs
-from .fastpack import pack_ints, unpack_ints
+from .fastpack import lc_matrix, pack_ints, unpack_ints
 
 _HANDLES: Dict[Tuple[str, int], int] = {}
 
 
+def _canonical(limbs: np.ndarray, p: int) -> np.ndarray:
+    """Packed limbs with each value of p or more reduced mod p."""
+    v = limbs.reshape(-1, 4)
+    below = np.zeros(len(v), dtype=bool)      # v < p, decided from the top
+    equal = np.ones(len(v), dtype=bool)
+    for i in (3, 2, 1, 0):
+        pi = np.uint64((p >> (64 * i)) & ((1 << 64) - 1))
+        below |= equal & (v[:, i] < pi)
+        equal &= v[:, i] == pi
+    hit = np.flatnonzero(~below)
+    if not hit.size:
+        return limbs
+    vals = unpack_ints(v[hit].reshape(-1), hit.size)
+    limbs = limbs.copy()
+    limbs.reshape(-1, 4)[hit] = pack_ints([x % p for x in vals]).reshape(-1, 4)
+    return limbs
+
+
 def _pack_vec(vec: Sequence[int], p: int) -> np.ndarray:
-    """Canonical (< p) packed limbs of ``vec``. Values whose top limb
-    stays strictly below p's are below p; the others (p or more, or on
-    the boundary limb, as p - 1 is) are reduced mod p and packed again,
-    and a vector holding a negative value or one of 2^256 or more is
-    reduced whole first."""
+    """Canonical (< p) packed limbs of ``vec``; a vector holding a
+    negative value or one of 2^256 or more is reduced whole first."""
     vals = vec if isinstance(vec, (list, tuple)) else list(vec)
     try:
         arr = pack_ints(vals)
     except OverflowError:
         return pack_ints([int(v) % p for v in vals])
-    hit = np.flatnonzero(arr[3::4] >= (p >> 192))
-    if hit.size:
-        arr.reshape(-1, 4)[hit] = pack_ints(
-            [int(vals[i]) % p for i in hit.tolist()]).reshape(-1, 4)
-    return arr
+    return _canonical(arr, p)
 
 
 class PackedVec:
@@ -134,19 +146,40 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def csr_of_rows(rows, which: int, p: int):
-    """Matrix ``which`` (0, 1, 2: A, B, C) of LC-dict rows as CSR:
-    ``uint64`` indptr and column indices, canonical coefficient limbs."""
-    indptr = [0]
-    idx: List[int] = []
-    coefs: List[int] = []
-    for row in rows:
-        for var, c in sorted(row[which].items()):
-            idx.append(var)
-            coefs.append(c % p)
-        indptr.append(len(idx))
-    return (np.asarray(indptr, dtype=np.uint64),
-            np.asarray(idx, dtype=np.uint64), pack_ints(coefs))
+def csr_and_digest(rows, num_inputs: int, num_aux: int, p: int):
+    """The A, B and C matrices of LC-dict rows as CSR (``uint64`` indptr
+    and column indices, canonical coefficient limbs) and the digest of
+    ``ConstraintSystem.shape_digest`` (the JAX package's), from one walk
+    of the rows in C++ (``lc_matrix``): the digest's byte stream (per
+    row, each LC's entries as 4 + 32 little-endian bytes closed by
+    ``|``, the row closed by ``;``) is laid out with numpy and hashed
+    once."""
+    rows = list(rows)
+    m = len(rows)
+    csr, entries, counts = [], [], []
+    for k in range(3):
+        cnt, cols, raw = lc_matrix(rows, k)
+        # the digest hashes the coefficients as the rows hold them
+        ent = np.empty((cols.size, 36), dtype=np.uint8)
+        ent[:, :4] = cols.astype("<u4").view(np.uint8).reshape(-1, 4)
+        ent[:, 4:] = raw.view(np.uint8).reshape(-1, 32)
+        entries.append(ent)
+        counts.append(cnt)
+        indptr = np.zeros(m + 1, dtype=np.uint64)
+        np.cumsum(cnt, out=indptr[1:])
+        csr.append((indptr, cols, _canonical(raw, p)))
+    # the entries in stream order (row by row, A, B, C in each), then
+    # "|" after each LC and ";" after each row's last "|"
+    group = [np.repeat(np.arange(m, dtype=np.int64) * 3 + k, counts[k])
+             for k in range(3)]
+    order = np.argsort(np.concatenate(group), kind="stable")
+    stream = np.concatenate(entries)[order].reshape(-1)
+    ends = 36 * np.cumsum(np.stack(counts, axis=1).reshape(-1))
+    at = np.repeat(ends, np.tile([1, 1, 2], m))
+    marks = np.tile(np.frombuffer(b"|||;", dtype=np.uint8), m)
+    h = hashlib.sha256(f"{num_inputs}:{num_aux}".encode())
+    h.update(np.insert(stream, at, marks).data)
+    return csr, h.hexdigest()
 
 
 def handle_for(shape) -> int:

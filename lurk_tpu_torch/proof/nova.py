@@ -72,8 +72,9 @@ class R1CSShape:
         self.num_inputs = cs.num_inputs          # includes the leading 1
         self.num_aux = cs.num_aux
         self.rows: List[Tuple[LC, LC, LC]] = cs.constraints
-        self.digest = cs.shape_digest()
-        self._csr = None
+        # the digest of cs.shape_digest() and the CSR arrays in one pass
+        self._csr, self.digest = hr.csr_and_digest(
+            self.rows, cs.num_inputs, cs.num_aux, cs.p)
 
     @property
     def num_constraints(self) -> int:
@@ -81,11 +82,8 @@ class R1CSShape:
 
     def csr(self) -> list:
         """The A, B and C matrices as ``(indptr, idx, coef limbs)``
-        arrays (the host C++'s and the shape cache's layout), built from
-        the rows at first use or read from the shape cache."""
-        if self._csr is None:
-            self._csr = [hr.csr_of_rows(self.rows, k, self.p)
-                         for k in range(3)]
+        arrays (the host C++'s and the shape cache's layout), built with
+        the digest or read from the shape cache."""
         return self._csr
 
     def matvecs(self, z) -> Tuple[List[int], List[int], List[int]]:

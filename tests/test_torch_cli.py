@@ -10,8 +10,9 @@ compared exactly.
   proof, meta and commitment files are equal byte for byte. The program
   takes 3 frames, so 3 chunks at rc = 1: the port's fork pool of step
   witnesses runs under the CLI (the child counts the pools it starts).
-  The JAX package's C++ libraries are built first, several at once,
-  into the suite's cache, which its other tests share.
+  The JAX package's C++ libraries are built first, all at once in
+  threads of this process, into the suite's cache, which its other tests
+  share.
 - The port's ``verify`` accepts its own file and the JAX CLI's, and
   rejects a copy with one sumcheck value changed (exit 1). ``inspect``
   prints the iterations and the claim's expressions.
@@ -30,10 +31,13 @@ import re
 import shutil
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
 import lurk_tpu.cli.lurk_proof as jax_lurk_proof
+import lurk_tpu.native as jax_native
+import lurk_tpu.native.fastpack as jax_fastpack
 from lurk_tpu_torch.cli import lurk_proof
 from lurk_tpu_torch.cli.__main__ import main
 from lurk_tpu_torch.cli.repl import Repl
@@ -67,6 +71,20 @@ sys.exit(rc)
 '''
 
 
+def build_jax_native(names) -> None:
+    """Build the JAX package's host libraries and its fastpack extension
+    into ``$LURK_TPU_CACHE/native`` at once, in threads of this process.
+    Its loader compiles one library at a time under a lock, which the
+    threads do without: each g++ writes a file of its own and renames it
+    into place."""
+    calls = [lambda n=n: jax_native.load(n) is not None for n in names]
+    calls.append(jax_fastpack.available)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_LOAD_LOCK", contextlib.nullcontext())
+        with ThreadPoolExecutor(len(calls)) as ex:
+            assert all(ex.map(lambda call: call(), calls))
+
+
 @pytest.fixture(scope="module")
 def proved(tmp_path_factory):
     """Both CLIs' ``load t.lurk --rc 1``: {package: (stdout, cache)}."""
@@ -86,14 +104,7 @@ def proved(tmp_path_factory):
         env={**env, "LURK_TPU_CACHE": str(caches["port"])})
     jax_env = {**env, "LURK_TPU_CACHE": str(caches["jax"]),
                "JAX_PLATFORMS": "cpu"}
-    builds = [subprocess.Popen(
-        [sys.executable, "-c", f"from lurk_tpu import native; "
-         f"assert native.load({name!r}) is not None"], env=jax_env)
-        for name in JAX_LIBS]
-    builds.append(subprocess.Popen(
-        [sys.executable, "-c", "from lurk_tpu.native import fastpack; "
-         "assert fastpack.available()"], env=jax_env))
-    assert [b.wait() for b in builds] == [0] * len(builds)
+    build_jax_native(JAX_LIBS)
     jax = subprocess.run(
         [sys.executable, "-m", "lurk_tpu.cli", "load", str(src), "--rc",
          "1"], capture_output=True, text=True, cwd=base, env=jax_env,

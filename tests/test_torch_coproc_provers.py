@@ -23,8 +23,8 @@ the CPU. Integers only: tolerance 0.
   ``SynthesisError``.
 
 The JAX side proves in two child processes (its host C++ built into
-``$LURK_TPU_CACHE`` in grandchildren meanwhile, its Poseidon on its
-Python path). The port's IVC provers and its trie prove run in two more
+``$LURK_TPU_CACHE`` in threads of the first meanwhile, its Poseidon on
+its Python path). The port's IVC provers and its trie prove run in two more
 children; this process proves the port's cycle and NIVC proofs
 meanwhile (the compression in a thread beside the NIVC prove), then
 holds them against the JAX children's.
@@ -75,7 +75,7 @@ def sha256_lang() -> Lang:
 
 
 # The JAX side, two children: "cycle" builds the JAX host libraries in
-# grandchildren while it evaluates and synthesizes, proves the cycle
+# threads while it evaluates and synthesizes, proves the cycle
 # program, then verifies the port's cycle proof and compressed proof
 # (the JAX objects the parent pickles into "port-cycle"); "nivc"
 # synthesizes the IVC step with sha256 inlined, proves the NIVC
@@ -83,25 +83,30 @@ def sha256_lang() -> Lang:
 # "port-nivc") through the JAX Repl. Each writes its results as plain
 # ints and tuples.
 JAX_CHILD = r'''
-import os, pickle, subprocess, sys, threading, time
+import contextlib, os, pickle, sys, threading, time
+from concurrent.futures import ThreadPoolExecutor
 import lurk_tpu.native as native
 out_dir, which, program = sys.argv[1:4]
 built = os.path.join(out_dir, "jax-libs-built")
 load = native.load
 if which == "cycle":
-    builds = {n: subprocess.Popen(
-        [sys.executable, "-c", "from lurk_tpu import native; "
-         f"assert native.load({n!r}) is not None"])
-        for n in ("msm", "srs", "pedersen", "r1cs", "spartan")}
-    def mark_built(procs):
-        if all(p.wait() == 0 for p in procs):
+    # the libraries compile at once in threads (the loader's lock would
+    # take them one at a time)
+    native._LOAD_LOCK = contextlib.nullcontext()
+    pool = ThreadPoolExecutor(5)
+    builds = {n: pool.submit(load, n)
+              for n in ("msm", "srs", "pedersen", "r1cs", "spartan")}
+    def mark_built():
+        if all(b.result() is not None for b in builds.values()):
             open(built, "w").close()
-    threading.Thread(target=mark_built, args=(list(builds.values()),),
-                     daemon=True).start()
+    threading.Thread(target=mark_built, daemon=True).start()
     def load_when_built(name):
-        if name in builds and builds.pop(name).wait() != 0:
+        if name not in builds:
+            return load(name)
+        lib = builds[name].result()
+        if lib is None:
             raise RuntimeError(f"JAX host library {name} did not build")
-        return load(name)
+        return lib
 else:
     # the "cycle" child builds the libraries: wait for them rather than
     # compile them a second time
@@ -163,7 +168,7 @@ if which == "nivc":
 else:
     pp, proof, frames = SuperNovaCycleProver(rc=1, lang=lang) \
         .evaluate_and_prove(store, expr, limit=50)
-    assert all(b.wait() == 0 for b in builds.values())
+    assert all(b.result() is not None for b in builds.values())
     rel = lambda u: (u.comm_w, u.comm_e, list(u.x), u.u)
     wit = lambda w: (list(w.w), list(w.e))
     out = dict(

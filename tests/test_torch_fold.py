@@ -313,6 +313,32 @@ def test_shape_cache_round_trip(step_pair, tmp_path, monkeypatch):
     assert jax_params_cache.load_shape("k", JAX_BN256).digest == shape.digest
 
 
+def test_shape_digest_and_csr_from_one_walk(step_pair):
+    """``R1CSShape`` takes its digest and its CSR arrays from one walk of
+    the rows (``hr.csr_and_digest``): the digest equals
+    ``ConstraintSystem.shape_digest`` (the JAX package's), the arrays the
+    rows read one by one, also with a coefficient of p or more and one
+    of 0 appended."""
+    from lurk_tpu_torch.hostlib.fastpack import pack_ints
+    from lurk_tpu_torch.r1cs.cs import ConstraintSystem
+    cs, shape, _, _ = step_pair
+    assert shape.digest == cs.shape_digest()
+    odd = ConstraintSystem(BN256_SCALAR)
+    odd.num_inputs, odd.aux = cs.num_inputs, cs.aux
+    odd.constraints = cs.constraints[:50] + [
+        ({0: P + 5, 3: 0}, {1: 1}, {}), ({}, {}, {2: P - 1, 1: 7})]
+    csr, digest = hr.csr_and_digest(odd.constraints, odd.num_inputs,
+                                    odd.num_aux, P)
+    assert digest == odd.shape_digest()
+    for k, (indptr, idx, coef) in enumerate(csr):
+        entries = [sorted(row[k].items()) for row in odd.constraints]
+        assert indptr.tolist() == np.cumsum(
+            [0] + [len(e) for e in entries]).tolist()
+        assert idx.tolist() == [v for e in entries for v, _ in e]
+        assert np.array_equal(coef, pack_ints(
+            [c % P for e in entries for _, c in e]))
+
+
 # ---------------------------------------------------------------------------
 # packed commits
 # ---------------------------------------------------------------------------

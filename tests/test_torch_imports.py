@@ -1,7 +1,7 @@
 """The port imports neither jax nor anything of the JAX package, at run
 time (every module imported in a fresh interpreter) and in its source
 (every import statement of the package, of chip_smoke.py and of the
-port's scripts)."""
+port's scripts); the circom coprocessor's modules among them."""
 
 import ast
 import pathlib
@@ -61,3 +61,14 @@ def test_source_imports_no_jax(path):
             continue
         assert not any(_forbidden(n) for n in names), \
             f"{path.name}:{node.lineno} imports {names}"
+
+
+def test_the_circom_modules_are_checked():
+    """The circom coprocessor, its wasm interpreter and witness
+    calculator, and the CLI that packages gadgets are among the modules
+    and sources checked above."""
+    names = set(_module_names())
+    for m in ("coproc.circom", "coproc.wasm_interp", "coproc.wasm_witness",
+              "cli.__main__"):
+        assert f"lurk_tpu_torch.{m}" in names
+        assert PORT / (m.replace(".", "/") + ".py") in SOURCES

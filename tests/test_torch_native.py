@@ -1,13 +1,22 @@
 """The port's kernel build (lurk_tpu_torch.native) without a card: nvcc
 is looked up, never assumed; builds are keyed by the sources; a build
-lands by rename and a failed one leaves nothing behind."""
+lands by rename and a failed one leaves nothing behind. And the host
+C++'s Montgomery product (csrc/host/field256.h) at its edges, in each
+field the port uses, against Python ints."""
 
 import os
+import random
 import stat
+import subprocess
+import sys
 
 import pytest
 
 from lurk_tpu_torch import native
+from lurk_tpu_torch.fields import (BN256_SCALAR, GRUMPKIN_SCALAR,
+                                   PALLAS_SCALAR, VESTA_SCALAR)
+from lurk_tpu_torch.hostlib import r1cs as host_r1cs
+from lurk_tpu_torch.hostlib import spartan as host_spartan
 from test_torch_field import one_torch_thread  # noqa: F401
 
 
@@ -98,3 +107,44 @@ def test_host_build_compiles_every_host_source(build_dir):
                             "poseidon", "r1cs", "spartan", "srs"]
     assert all(native.host_library_path(n).exists() for n in times)
     assert native.build_host() == {}
+
+
+def _edges(p: int) -> list:
+    """Operands below p at the product's edges (0, 1, p - 1, a limb
+    full or empty, half of p) and a few drawn from a seed."""
+    rng = random.Random(p)
+    vals = [0, 1, 2, 3, p - 3, p - 2, p - 1, p // 2, p // 2 + 1,
+            (1 << 64) - 1, 1 << 64, (1 << 128) - 1, 1 << 192,
+            (1 << 192) - 1, p - (1 << 64), p - (1 << 192),
+            (1 << 256) % p, (1 << 512) % p]
+    return vals + [rng.randrange(p) for _ in range(14)]
+
+
+@pytest.mark.parametrize("field", [BN256_SCALAR, GRUMPKIN_SCALAR,
+                                   PALLAS_SCALAR, VESTA_SCALAR],
+                         ids=lambda f: f.name)
+def test_host_field_product_at_its_edges(field):
+    """a + r*b (the fold's RLC: r into Montgomery form, then r*b) for
+    every pair of edge operands, and into and out of Montgomery form."""
+    p = field.modulus
+    vals = _edges(p)
+    for r in vals:
+        assert host_r1cs.vec_rlc(p, vals, vals, r) == [
+            (a + r * a) % p for a in vals]
+        assert host_r1cs.vec_rlc(p, [0] * len(vals), vals, r) == [
+            r * b % p for b in vals]
+    mont = host_spartan.to_mont(vals, p)
+    assert host_r1cs.unpack_ints(mont, len(vals)) == [
+        (v << 256) % p for v in vals]
+    assert host_spartan.from_mont(mont, len(vals), p) == vals
+
+
+def test_host_field_refuses_a_wide_modulus():
+    """A modulus whose top limb is 2^63 - 2 or more would overflow the
+    product: the library ends the process rather than answer."""
+    code = ("from lurk_tpu_torch.hostlib import r1cs\n"
+            "print(r1cs.vec_rlc((1 << 255) - 19, [1], [1], 1))\n")
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert run.returncode != 0 and not run.stdout
+    assert "not supported" in run.stderr
