@@ -162,7 +162,20 @@ Phases, each fatal on failure:
      circom step's W equals the plain version, supernova.compress and
      verify_compressed accept and reject a changed input of the circom
      step; prove, compress and verify seconds beside PERF.md's
-     prediction. Its K6 launches and times are in the kernels line.
+     prediction. Its K6 launches and times are in the kernels line;
+  16. the memoset coroutines: the sample toplevel's ``(even 100)`` (101
+     queries) on a Store(BN256, cuda) scope at rc = 10, its transcript
+     hydrated through K1 (a launch a batched wave, every digest and r
+     against host hashing), each wave's kernel timed alone;
+     MemosetCycleProver(rc=10, cuda): public parameters cold (3 primary
+     circuits, no disk cache), 11 steps starting at circuit 1 (22 + 22
+     K6 launches), step 0's W1 against the plain version, verify (6 + 2)
+     accepts and rejects a changed zn[7]; ``(factorial 29)`` through
+     MemosetProver(rc=10, cuda) (6 + 2 launches; a changed zi[7] and a
+     changed step input rejected); tests/test_memoset_env.py's two env
+     lookups through MemosetProver(rc=2, cuda); each part's seconds
+     beside PERF.md's prediction. Its K1 and K6 launches and times are in
+     the kernels line.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -2473,6 +2486,273 @@ def phase15(bound, dev) -> dict:
             "times": times}
 
 
+# phase 16's memoset coroutines, each part with the range PERF.md
+# section 5 predicted before its first run on the card
+MEMOSET_RC = 10
+MEMOSET_EVEN = 100              # (even 100): 51 even and 50 odd queries
+MEMOSET_FACTORIAL = 29          # (factorial 29): 30 keys, 29! below r
+MEMOSET_PREDICTED = {"scope": "1-4", "public parameters": "5-10",
+                     "prove": "8-15", "verify": "0.5-2",
+                     "nivc prove + verify": "2-5", "env": "0.5-2",
+                     "phase 16": "20-35"}
+
+
+def memoset_scope(store, toplevel, name, n: int):
+    """``(name n)`` queried on a scope of ``toplevel`` at MEMOSET_RC and
+    finalized: (scope, result)."""
+    from lurk_tpu_torch.coroutine.toplevel import scope_for
+    scope = scope_for(toplevel, store, default_rc=MEMOSET_RC)
+    result = scope.query(scope.query_cls(name, [store.num(n)]).to_ptr(
+        store))
+    scope.finalize_transcript()
+    return scope, result
+
+
+def phase16(bound, gen, dev) -> dict:
+    """The memoset coroutines on the card. 16.1: the sample toplevel's
+    ``(even 100)`` on a Store(BN256, cuda) scope at rc = MEMOSET_RC: 101
+    queries, the transcript hydrated through K1 (a launch a batched
+    wave, every digest against host hashing on a second store, ``r``
+    equal), each wave's kernel timed alone; MemosetCycleProver(cuda):
+    its public parameters cold and timed (3 primary circuits, no disk
+    cache), 11 steps starting at circuit 1, K6 launches by curve, step
+    0's W1 against the plain version, verify and a changed zn[7].
+    16.2: ``(factorial 29)`` through MemosetProver(cuda): 3 steps, the
+    result 29!, verify and a changed zi[7] and step input. 16.3:
+    tests/test_memoset_env.py's two lookups at rc = 2 through
+    MemosetProver(cuda)."""
+    import math
+    from lurk_tpu_torch.coroutine import prove as mp
+    from lurk_tpu_torch.coroutine import prove_cycle as mpc
+    from lurk_tpu_torch.coroutine.env import EnvCircuitQuery, EnvQuery
+    from lurk_tpu_torch.coroutine.memoset import Scope
+    from lurk_tpu_torch.coroutine.toplevel import ToplevelCircuitQuery
+    from lurk_tpu_torch.examples import sample_toplevel
+    from lurk_tpu_torch.fields import BN256_SCALAR
+    from lurk_tpu_torch.msm import kernel as M
+    from lurk_tpu_torch.poseidon import kernel as K
+    from lurk_tpu_torch.proof import hyperkzg as hk
+    from lurk_tpu_torch.proof import nova
+    from lurk_tpu_torch.store import core
+    from lurk_tpu_torch.store.core import Store
+    from lurk_tpu_torch.symbol import user_sym
+
+    r = BN256_SCALAR.modulus
+    t_start = time.perf_counter()
+    times = {}
+    toplevel, factorial, even, odd = sample_toplevel()
+
+    # ---- 16.1: (even 100), its transcript hydrated through K1 ----
+    reset_counts()
+    with WaveRecorder() as rec:
+        t0 = time.perf_counter()
+        store = Store(BN256_SCALAR, device=dev)
+        scope, result = memoset_scope(store, toplevel, even, MEMOSET_EVEN)
+        torch.cuda.synchronize()
+        times["scope"] = time.perf_counter() - t0
+        launches = K.launches
+    big = rec.waves
+    counts = {i: len(k) for i, k in scope.unique_inserted_keys.items()}
+    check(store.fetch_num(result) == 1, "(even 100) is not 1")
+    check(len(scope.queries) == 101 and counts == {1: 51, 2: 50},
+          f"{len(scope.queries)} queries, unique keys by index {counts}; "
+          f"expected 101 and {{1: 51, 2: 50}}")
+    check(scope.verify_balance(), "the multiset does not balance")
+    check(launches == len(big), f"{launches} K1 launches for {len(big)} "
+          f"batched waves")
+    threshold, core._DEVICE_WAVE_THRESHOLD = core._DEVICE_WAVE_THRESHOLD, \
+        1 << 62                       # every wave of the host store on the host
+    try:
+        host = Store(BN256_SCALAR, device="cpu")
+        host_scope, _ = memoset_scope(host, toplevel, even, MEMOSET_EVEN)
+    finally:
+        core._DEVICE_WAVE_THRESHOLD = threshold
+    check(host_scope.r == scope.r, "r differs from host hashing")
+    for iv, d in store.z_cache.items():
+        check(host.hash_ptr_val(iv) == d, f"hydrated digest of {iv} differs")
+    print(f"phase 16.1: sample_toplevel's (even {MEMOSET_EVEN}) on a "
+          f"Store(BN256, cuda) scope at rc={MEMOSET_RC}: result 1, "
+          f"{len(scope.queries)} queries (unique keys by circuit {counts}), "
+          f"the multiset balances; query + finalize {times['scope']:.2f} s: "
+          f"{len(big)} batched waves {big}, {launches} K1 launches"
+          + ("" if big else " (no wave of 64 or more)")
+          + f"; {len(store.z_cache)} digests and r equal host hashing")
+    k1 = {"launches": launches, "ms": 0.0, "plain_ms": 0.0,
+          "bound_ms": 0.0, "max_abs_err": 0}
+    if big:
+        k1_ms, k1_plain, k1_bound, k1_err, _ = waves_alone(bound, gen, dev,
+                                                           big)
+        k1.update(ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_bound,
+                  max_abs_err=k1_err)
+
+    # the keys as a new process sizes them, from the SRS on disk
+    hk._SRS_MEM.clear()
+    prover = mpc.MemosetCycleProver(MEMOSET_RC,
+                                    ToplevelCircuitQuery(toplevel),
+                                    device=dev)
+    t0 = time.perf_counter()
+    pp = prover.public_params(scope, len(toplevel))
+    times["public parameters"] = time.perf_counter() - t0
+    s1s, s2 = pp.shapes1, pp.shape2
+    check(pp.n_circuits == 3 and all(c.base_allowed for c in pp.cfg1s),
+          f"{pp.n_circuits} primary circuits, base_allowed "
+          f"{[c.base_allowed for c in pp.cfg1s]}")
+    print(f"phase 16.1: MemosetCycleProver(rc={MEMOSET_RC}, cuda)'s public "
+          f"parameters cold in {times['public parameters']:.1f} s: primary "
+          + ", ".join(f"pc {pc} {s.num_constraints} constraints, "
+                      f"{s.num_aux} aux" for pc, s in enumerate(s1s))
+          + f"; secondary {s2.num_constraints}, {s2.num_aux}; keys BN254 "
+          f"2^{len(pp.ck1.gens).bit_length() - 1}, Grumpkin "
+          f"2^{len(pp.ck2.gens).bit_length() - 1}")
+    pcs = [st.index for st in prover.steps(scope)]
+    with CommitRecorder() as crec:
+        reset_counts()
+        t0 = time.perf_counter()
+        pp, proof = prover.prove_from_scope(scope)
+        torch.cuda.synchronize()
+        times["prove"] = time.perf_counter() - t0
+        by = dict(M.launches_by_curve)
+        n = proof.n
+        check(n == 11 and pcs == [1] * 6 + [2] * 5,
+              f"{n} steps over circuits {pcs}; expected 11, six of "
+              f"circuit 1 then five of circuit 2")
+        check(by == {"bn254-g1": 2 * n, "grumpkin": 2 * n},
+              f"MSM launches by curve {by} in the prove, expected "
+              f"{2 * n} + {2 * n} (W1 and T1 of each step; W2 of each, T2 "
+              f"of steps 1-{n - 1} and finish's)")
+        check(K.launches == 0, f"{K.launches} K1 launches in the prove "
+              f"(one key's transcript a wave)")
+        key, vec, point = crec.records[0]
+        check(key.curve.name == "bn254-g1" and vec.n == s1s[1].num_aux,
+              "the first commit is not step 0's W1")
+        print(f"phase 16.1: MemosetCycleProver.prove_from_scope: {n} steps "
+              f"(circuits {pcs}) in {times['prove']:.1f} s, MSM launches "
+              f"{by}")
+        reset_counts()
+        t0 = time.perf_counter()
+        ok = mpc.verify(pp, proof)
+        torch.cuda.synchronize()
+        times["verify"] = time.perf_counter() - t0
+        vby = dict(M.launches_by_curve)
+        check(ok, "prove_cycle.verify rejects the memoset proof")
+        check(vby == {"bn254-g1": 6, "grumpkin": 2}, f"MSM launches {vby} "
+              f"in the verify, expected 6 + 2 (W and E a circuit)")
+        records = list(crec.records)
+    zn = list(proof.zn)
+    zn[7] = (zn[7] + 1) % r
+    check(not mpc.verify(pp, dataclasses.replace(proof, zn=zn)),
+          "verify accepts the memoset proof with zn[7] changed")
+    words = vec.arr.view(np.uint32).reshape(vec.n, 8)
+    plain, plain_ms = plain_commit(key.curve, key.table(), words)
+    check(plain == point, "step 0's W1 commit differs from the plain "
+          "version")
+    timed = kernel_alone(bound, records)
+    check(len(timed) == 4 * n + 8, f"{len(timed)} commits timed, expected "
+          f"{4 * n + 8}")
+    print_classes("prove", timed[:4 * n])
+    print_classes("verify", timed[4 * n:])
+    ms, bound_ms = sum(t[2] for t in timed), sum(t[3] for t in timed)
+    print(f"phase 16.1: verify accepts ({times['verify']:.1f} s, MSM "
+          f"launches {vby}) and rejects zn[7] changed; step 0's W1 "
+          f"({vec.n} scalars) equals the plain version on the card "
+          f"({plain_ms:.1f} ms, host clock); the {len(timed)} commits' "
+          f"kernels {ms:.3f} ms, bound {bound_ms:.3f} ms "
+          f"({bound_ms / ms:.1%})")
+
+    # ---- 16.2: (factorial 29) through MemosetProver ----
+    store = Store(BN256_SCALAR, device=dev)
+    with CommitRecorder() as crec:
+        reset_counts()
+        t0 = time.perf_counter()
+        scope, result = memoset_scope(store, toplevel, factorial,
+                                      MEMOSET_FACTORIAL)
+        nprover = mp.MemosetProver(MEMOSET_RC, ToplevelCircuitQuery(toplevel),
+                                   device=dev)
+        npp, nproof = nprover.prove_from_scope(scope)
+        nby = dict(M.launches_by_curve)
+        ok = mp.verify(npp, nproof)
+        torch.cuda.synchronize()
+        times["nivc prove + verify"] = time.perf_counter() - t0
+        vby = {k: v - nby.get(k, 0) for k, v in M.launches_by_curve.items()}
+        nrecords = list(crec.records)
+    check(store.fetch_num(result) == math.factorial(MEMOSET_FACTORIAL) < r,
+          f"(factorial {MEMOSET_FACTORIAL}) is not {MEMOSET_FACTORIAL}!")
+    check([i for i, _, _ in nproof.steps] == [0, 0, 0],
+          f"steps of circuits {[i for i, _, _ in nproof.steps]}, expected "
+          f"[0, 0, 0]")
+    check(nby == {"bn254-g1": 6} and vby == {"bn254-g1": 2},
+          f"MSM launches {nby} in the prove and {vby} in the verify, "
+          f"expected 6 (W and T of 3 steps) and 2 (W and E)")
+    check(ok, "coroutine.prove.verify rejects the memoset NIVC proof")
+    zi = list(nproof.zi)
+    zi[7] = (zi[7] + 1) % r
+    check(not mp.verify(npp, dataclasses.replace(nproof, zi=zi)),
+          "verify accepts the NIVC proof with zi[7] changed")
+    idx, inst, comm_t = nproof.steps[1]
+    bad = nova.R1CSInstance(inst.comm_w, [(inst.x[0] + 1) % r]
+                            + inst.x[1:])
+    check(not mp.verify(npp, dataclasses.replace(
+        nproof, steps=[nproof.steps[0], (idx, bad, comm_t),
+                       nproof.steps[2]])),
+          "verify accepts the NIVC proof with a step input changed")
+    shape = npp.shapes[0]
+    ntimed = kernel_alone(bound, nrecords)
+    check(len(ntimed) == 8, f"{len(ntimed)} commits timed, expected 8")
+    nms, nbound = sum(t[2] for t in ntimed), sum(t[3] for t in ntimed)
+    print(f"phase 16.2: MemosetProver(rc={MEMOSET_RC}, cuda) on (factorial "
+          f"{MEMOSET_FACTORIAL}) = {MEMOSET_FACTORIAL}!: 3 steps of "
+          f"{shape.num_constraints} constraints, {shape.num_aux} aux, key "
+          f"2^{len(npp.ck.gens).bit_length() - 1}; query, prove and verify "
+          f"{times['nivc prove + verify']:.1f} s; MSM launches {nby} + "
+          f"{vby}; verify rejects zi[7] and a step input changed; kernels "
+          f"{nms:.3f} ms, bound {nbound:.3f} ms ({nbound / nms:.1%})")
+
+    # ---- 16.3: the env lookups of tests/test_memoset_env.py ----
+    store = Store(BN256_SCALAR, device=dev)
+    a, b, c = (store.intern_symbol(user_sym(x)) for x in "abc")
+    empty = store.intern_empty_env()
+    env = empty
+    for var, v in ((a, 1), (b, 2), (c, 3), (a, 4)):
+        env = store.push_binding(var, store.num(v), env)
+    with CommitRecorder() as crec:
+        reset_counts()
+        t0 = time.perf_counter()
+        escope = Scope(store, EnvQuery, default_rc=2)
+        got = [escope.query(EnvQuery(c, env).to_ptr(store)),
+               escope.query(EnvQuery(b, empty).to_ptr(store))]
+        escope.finalize_transcript()
+        epp, eproof = mp.MemosetProver(2, EnvCircuitQuery(),
+                                       device=dev).prove_from_scope(escope)
+        ok = mp.verify(epp, eproof)
+        torch.cuda.synchronize()
+        times["env"] = time.perf_counter() - t0
+        eby = dict(M.launches_by_curve)
+        erecords = list(crec.records)
+    nil = store.intern_nil()
+    check(got == [store.cons(store.num(3), store.intern_t()),
+                  store.cons(nil, nil)], "the env lookups' results differ")
+    check(ok and eproof.zi[7] == 0, "the env lookups' proof does not "
+          "verify")
+    check(eby == {"bn254-g1": 6}, f"MSM launches {eby}, expected 6 (W and "
+          f"T of 2 steps, W and E)")
+    etimed = kernel_alone(bound, erecords)
+    ems, ebound = sum(t[2] for t in etimed), sum(t[3] for t in etimed)
+    print(f"phase 16.3: the env lookups (c through 2 hops, b in the empty "
+          f"env) through MemosetProver(rc=2, cuda): "
+          f"{len(eproof.steps)} steps, verified; {times['env']:.1f} s; MSM "
+          f"launches {eby}; kernels {ems:.3f} ms, bound {ebound:.3f} ms")
+    times["phase 16"] = time.perf_counter() - t_start
+    print("phase 16: the memoset coroutines, seconds (host clock): "
+          + ", ".join(f"{k} {v:.1f} (predicted {MEMOSET_PREDICTED[k]})"
+                      for k, v in times.items()))
+    return {"k1": k1,
+            "k6": {"launches": len(timed) + len(ntimed) + len(etimed),
+                   "ms": ms + nms + ems,
+                   "bound_ms": bound_ms + nbound + ebound,
+                   "plain_ms": plain_ms},
+            "times": times}
+
+
 def imad_rate(sms: int):
     """(32-bit IMAD per second, SM clock in MHz under that load) from
     csrc/imad_rate.cu: CUDA events over IMAD_LAUNCHES back-to-back
@@ -2790,21 +3070,35 @@ def main() -> int:
           f"{t['verify']:.1f} s; compress {t['compress']:.1f} s, "
           f"verify_compressed {t['verify_compressed']:.1f} s")
 
+    # ---- phase 16: the memoset coroutines ----
+    memo = phase16(bound, gen, dev)
+    elapsed("16", t_all)
+    t = memo["times"]
+    print(f"memoset (even {MEMOSET_EVEN}) through MemosetCycleProver(rc="
+          f"{MEMOSET_RC}): public parameters {t['public parameters']:.1f} s, "
+          f"prove {t['prove']:.1f} s + verify {t['verify']:.1f} s; "
+          f"(factorial {MEMOSET_FACTORIAL}) through MemosetProver "
+          f"{t['nivc prove + verify']:.1f} s; phase 16 {t['phase 16']:.1f} s")
+
     for part in (fold, cycle, comp, nova_cycle, nivc, cli["k6"],
-                 coproc["k6"], circ["k6"]):
+                 coproc["k6"], circ["k6"], memo["k6"]):
         for k in ("launches", "ms", "bound_ms"):
             msm[k] += part[k]
-    for k in ("launches", "ms", "bound_ms"):
-        sparse[k] += cli["k1"][k] + coproc["k1"][k]
-    sparse["plain_ms"] += coproc["k1"]["plain_ms"]
-    sparse["max_abs_err"] = max(sparse["max_abs_err"],
-                                coproc["k1"]["max_abs_err"])
-    for part in (cycle, nova_cycle, nivc, coproc["k6"], circ["k6"]):
+    for part in (cli["k1"], coproc["k1"], memo["k1"]):
+        for k in ("launches", "ms", "bound_ms"):
+            sparse[k] += part[k]
+    for part in (coproc["k1"], memo["k1"]):
+        sparse["plain_ms"] += part["plain_ms"]
+        sparse["max_abs_err"] = max(sparse["max_abs_err"],
+                                    part["max_abs_err"])
+    for part in (cycle, nova_cycle, nivc, coproc["k6"], circ["k6"],
+                 memo["k6"]):
         msm["plain_ms"] += part["plain_ms"]
     msm["plain_of"] = ("the 2^20 commit, step 0's W2 and step 1's T2 of "
                        "the cycle fold, step 0's W2 of the Nova cycle, a "
                        "2^12 HyperKZG commit of NIVC's compress, the "
-                       "sha256 step's W1, the circom step's W")
+                       "sha256 step's W1, the circom step's W, the memoset "
+                       "cycle's step 0 W1")
 
     print(json.dumps({"kernels": [sparse, dense, msm, folded]}))
     print(f"total {time.perf_counter() - t_all:.1f} s")

@@ -1,10 +1,12 @@
 """The reference's headline workload: the infinite-stream Fibonacci
 program (benches/common/fib.rs), run for ``fib_limit(n, rc)`` frames,
-and the trie coprocessor's program (benches/trie_nivc.rs).
+the trie coprocessor's program (benches/trie_nivc.rs), and the sample
+toplevel of memoset coroutines (src/lem/coroutine/toplevel.rs:273-350).
 
 Copies of the programs and frame model of the JAX package's
-``examples/fib.py`` and ``examples/benches.py``, so that the port's
-smoke run needs nothing outside this package.
+``examples/fib.py`` and ``examples/benches.py``, and of the LEM of its
+``tests/test_toplevel.py``, so that the port's smoke run needs nothing
+outside this package.
 """
 
 FIB_PROGRAM = """
@@ -47,3 +49,66 @@ TRIE_PROGRAM = """
       (fib-trie (.lurk.trie.insert fib-trie 50 (fib 50))))
   (+ (num (.lurk.trie.lookup fib-trie 40)) (num (.lurk.trie.lookup fib-trie 50))))"""
 TRIE_RESULT = 12688603180
+
+
+def sample_toplevel():
+    """The factorial, even and odd coroutines in LEM, in that order (the
+    reference's lem_coroutine_eval_test): (toplevel, factorial, even,
+    odd symbols). even and odd call each other through ``Op::Crout``."""
+    from .coroutine.toplevel import Toplevel
+    from .lem import ir
+    from .lem.eval_step import eq_val, lit_num, mul, sub
+    from .symbol import user_sym
+
+    factorial_sym = user_sym("factorial")
+    even_sym = user_sym("even")
+    odd_sym = user_sym("odd")
+    factorial = ir.Func(
+        "factorial", ("n",), 1,
+        ir.block(
+            lit_num("zero", 0),
+            lit_num("one", 1),
+            eq_val("n_is_zero", "n", "zero"),
+            ir.if_(
+                "n_is_zero",
+                ir.block(ir.ret("one")),
+                ir.block(
+                    sub("m", "n", "one"),
+                    (ir.CROUT, ("p",), factorial_sym, ("m",)),
+                    mul("res", "n", "p"),
+                    ir.ret("res"),
+                ))))
+    even = ir.Func(
+        "even", ("n",), 1,
+        ir.block(
+            lit_num("zero", 0),
+            lit_num("one", 1),
+            eq_val("n_is_zero", "n", "zero"),
+            ir.if_(
+                "n_is_zero",
+                ir.block(ir.ret("one")),
+                ir.block(
+                    sub("m", "n", "one"),
+                    (ir.CROUT, ("res",), odd_sym, ("m",)),
+                    ir.ret("res"),
+                ))))
+    odd = ir.Func(
+        "odd", ("n",), 1,
+        ir.block(
+            lit_num("zero", 0),
+            eq_val("n_is_zero", "n", "zero"),
+            ir.if_(
+                "n_is_zero",
+                ir.block(ir.ret("zero")),
+                ir.block(
+                    lit_num("one", 1),
+                    sub("m", "n", "one"),
+                    (ir.CROUT, ("res",), even_sym, ("m",)),
+                    ir.ret("res"),
+                ))))
+    toplevel = Toplevel([
+        (factorial_sym, factorial),
+        (even_sym, even),
+        (odd_sym, odd),
+    ])
+    return toplevel, factorial_sym, even_sym, odd_sym

@@ -118,6 +118,9 @@ class SynthesisCtx:
     blank: bool
     hint_bindings: Dict[str, Ptr]
     cproc_synthesizers: Dict[object, object]  # Symbol -> CoCircuit
+    # Op::Crout dispatch of the memoset coroutine circuits
+    # (synthesis.rs:114-141): (synth, not_dummy, sym, arg_ptrs) -> outs
+    crout_synthesizer: object = None
 
 
 class Synthesizer:
@@ -283,6 +286,20 @@ class Synthesizer:
             out_ptrs = synth.synthesize(self, not_dummy,
                                         [bound[v] for v in ins])
             assert len(out_ptrs) == len(outs)
+            for var, ptr in zip(outs, out_ptrs):
+                bound[var] = ptr
+        elif k == ir.CROUT:
+            _, outs, sym_, ins = op
+            handler = self.ctx.crout_synthesizer
+            if handler is None:
+                raise SynthesisError(
+                    f"coroutine {sym_} outside a memoset circuit scope")
+            out_ptrs = handler(self, not_dummy, sym_,
+                               [bound[v] for v in ins])
+            if len(out_ptrs) != len(outs):
+                raise SynthesisError(
+                    f"coroutine {sym_} gave {len(out_ptrs)} outputs, "
+                    f"expected {len(outs)}")
             for var, ptr in zip(outs, out_ptrs):
                 bound[var] = ptr
         elif k in (ir.CONS2, ir.CONS3, ir.CONS4):

@@ -218,14 +218,17 @@ class SuperNovaProver:
 
 def _io_chain_ok(steps, z0, zi) -> bool:
     """The step IO linkage across ALL steps in order (z_out == next
-    z_in) plus the z0/zi endpoints."""
+    z_in) plus the z0/zi endpoints; each step's input is z_in ++ z_out
+    at z0's arity (6 scalars for the Lurk step, 12 for a memoset's)."""
+    n = len(z0)
     xs = [inst.x for _, inst, _ in steps]
-    if not xs or xs[0][:6] != list(z0):
+    if not xs or any(len(x) != 2 * n for x in xs) or \
+            xs[0][:n] != list(z0):
         return False
     for prev, cur in zip(xs, xs[1:]):
-        if prev[6:] != cur[:6]:
+        if prev[n:] != cur[:n]:
             return False
-    return xs[-1][6:] == list(zi)
+    return xs[-1][n:] == list(zi)
 
 
 def _fold_chains(pp: SuperNovaPublicParams, steps

@@ -104,11 +104,14 @@ class SnCyclePublicParams:
     @staticmethod
     def setup(field1: FieldSpec, io_arity: int, step_fns,
               dummy_z0: List[int], dummy_auxes: List[Any],
-              cache_base: str, device=None) -> "SnCyclePublicParams":
+              cache_base: Optional[str] = None, device=None,
+              base_allowed: bool = False) -> "SnCyclePublicParams":
         """step_fns[pc](cs, zi_nums, aux) -> (z_next, pc_next);
         dummy_auxes[pc] drives the shape synthesis of circuit pc, whose
-        shapes are cached under ``cache_base``. Both commitment keys
-        commit on ``device``."""
+        shapes are cached on disk under ``cache_base``, or synthesized
+        and not cached when it is None. ``base_allowed`` lets a chain
+        start at any circuit index. Both commitment keys commit on
+        ``device``."""
         curve1 = CURVE_FOR_FIELD[field1.name]
         field2 = curve1.base
         curve2 = CURVE_FOR_FIELD[field2.name]
@@ -118,7 +121,8 @@ class SnCyclePublicParams:
         n = len(step_fns)
         cfg1s = [SnPrimaryCfg(curve_other=curve2, p_other=field2.modulus,
                               io_arity=io_arity, circuit_index=pc,
-                              step_fn=step_fns[pc])
+                              step_fn=step_fns[pc],
+                              base_allowed=base_allowed)
                  for pc in range(n)]
         cfg2 = SnSecondaryCfg(curve_other=curve1,
                               p_other=field1.modulus, n_circuits=n)
@@ -143,9 +147,14 @@ class SnCyclePublicParams:
             synthesize_sn_secondary(cs2, cfg2, w2)
             return R1CSShape(cs2)
 
-        shapes1 = [cached_shape(f"{cache_base}_sn{pc}", field1,
-                                synth1(pc)) for pc in range(n)]
-        shape2 = cached_shape(f"{cache_base}_snsec_{n}", field2, synth2)
+        if cache_base is not None:
+            shapes1 = [cached_shape(f"{cache_base}_sn{pc}", field1,
+                                    synth1(pc)) for pc in range(n)]
+            shape2 = cached_shape(f"{cache_base}_snsec_{n}", field2,
+                                  synth2)
+        else:
+            shapes1 = [synth1(pc)() for pc in range(n)]
+            shape2 = synth2()
         h = hashlib.sha256(
             (":".join(s.digest for s in shapes1)
              + "|" + shape2.digest).encode()).hexdigest()
@@ -183,12 +192,13 @@ class SnCycleProof:
 class SnCycleSNARK:
     """Incremental NIVC prover (supernova RecursiveSNARK parity)."""
 
-    def __init__(self, pp: SnCyclePublicParams, z0: Sequence[int]):
+    def __init__(self, pp: SnCyclePublicParams, z0: Sequence[int],
+                 initial_pc: int = 0):
         self.pp = pp
         self.z0 = [v % pp.field1.modulus for v in z0]
         self.zi = list(self.z0)
         self.i = 0
-        self.pc = 0                    # pc of the NEXT step to prove
+        self.pc = initial_pc           # pc of the NEXT step to prove
         self.h = 0
         self.g = 0
         self.U1 = [_default_relaxed() for _ in range(pp.n_circuits)]

@@ -359,3 +359,32 @@ def test_packed_commit_on_card(card):
     tab = key.table().prefix(n)
     words = torch.from_numpy(packed.arr.view(np.int32).reshape(n, 8)).to(card)
     assert got == M.to_affine(curve, M.msm_plain(curve, tab.rows, words))
+
+
+@pytest.mark.cuda
+def test_memoset_proof_equal_on_both_devices(card):
+    """The memoset NIVC prover with its key on the card (every W, T and E
+    commit through K6) gives the proof the CPU key gives, and both
+    verify."""
+    from lurk_tpu_torch.coroutine import prove
+    from lurk_tpu_torch.coroutine.circuit import DemoCircuitQuery
+    from lurk_tpu_torch.coroutine.memoset import DemoQuery, Scope
+    from lurk_tpu_torch.store.core import Store
+
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        store = Store(BN256_SCALAR, device=dev)
+        scope = Scope(store, DemoQuery, default_rc=3)
+        scope.query(DemoQuery(store.num(5)).to_ptr(store))
+        launches = M.launches
+        pp, proof = prove.MemosetProver(
+            3, DemoCircuitQuery(), device=dev).prove_from_scope(scope)
+        assert prove.verify(pp, proof)
+        if dev.type == "cuda":
+            assert M.launches == launches + 2 * 2 + 2
+        out[dev.type] = ([(i, inst.comm_w, inst.x, t)
+                          for i, inst, t in proof.steps],
+                         {i: (list(w.w), list(w.e))
+                          for i, w in proof.final_witnesses.items()},
+                         proof.z0, proof.zi)
+    assert out["cuda"] == out["cpu"]

@@ -1,7 +1,8 @@
 """The port imports neither jax nor anything of the JAX package, at run
 time (every module imported in a fresh interpreter) and in its source
 (every import statement of the package, of chip_smoke.py and of the
-port's scripts); the circom coprocessor's modules among them."""
+port's scripts); the circom coprocessor's and the memoset coroutines'
+modules among them."""
 
 import ast
 import pathlib
@@ -15,7 +16,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "lurk_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_host_timings.py",
-    ROOT / "scripts" / "torch_sha256_nivc.py"]
+    ROOT / "scripts" / "torch_sha256_nivc.py",
+    ROOT / "scripts" / "torch_fib_e2e.py"]
 
 
 def _module_names():
@@ -72,3 +74,15 @@ def test_the_circom_modules_are_checked():
               "cli.__main__"):
         assert f"lurk_tpu_torch.{m}" in names
         assert PORT / (m.replace(".", "/") + ".py") in SOURCES
+
+
+COROUTINE_MODULES = ("memoset", "circuit", "env", "toplevel", "prove",
+                     "prove_cycle")
+
+
+@pytest.mark.parametrize("name", COROUTINE_MODULES)
+def test_the_coroutine_modules_are_checked(name):
+    """Each module of the memoset coroutines is among the modules and
+    sources checked above."""
+    assert f"lurk_tpu_torch.coroutine.{name}" in set(_module_names())
+    assert PORT / "coroutine" / f"{name}.py" in SOURCES
