@@ -175,7 +175,22 @@ Phases, each fatal on failure:
      changed step input rejected); tests/test_memoset_env.py's two env
      lookups through MemosetProver(rc=2, cuda); each part's seconds
      beside PERF.md's prediction. Its K1 and K6 launches and times are in
-     the kernels line.
+     the kernels line;
+  17. the chain server (``lurk_tpu_torch.cli.chain_server``) at rc = 10
+     on CUDA stores: ChainState over the commit counter behind ``serve``
+     on a free local port (GET /config; POST /chain 9 without a proof and
+     12 with one: results 9 and 21, the Nova cycle's public parameters
+     cold, the proof compressed and verified); StreamState over the
+     plain counter with a session file (proving calls 3 and 4, the
+     session resumed in a fresh CUDA store with its accumulator equal to
+     the dump, a proving call 5: results 3, 7 and 12, one proof across
+     the calls, its finish() verified); ``python -m
+     lurk_tpu_torch.cli.chain_server --device cuda`` in a child (/config
+     and /chain without a proof, then interrupted). Each call runs with
+     every count at 0 and prints its prove, compress and verify seconds,
+     its K1 waves and its K6 launches with their kernels timed alone;
+     the session dumps' sizes and write times. Its launches and times
+     are in the kernels line.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -2753,6 +2768,285 @@ def phase16(bound, gen, dev) -> dict:
             "times": times}
 
 
+# phase 17 (the chain server): the server's default rc, its two counters
+# (tests/test_chain_server.py), and each part's seconds with the range
+# PERF.md section 5 predicted before its first run on the card
+CHAIN_RC = 10
+CHAIN_COUNTER = ("(letrec ((add (lambda (counter x)"
+                 " (let ((counter (+ counter x)))"
+                 " (cons counter (add counter))))))"
+                 " (add 0))")
+CHAIN_COMMIT_COUNTER = ("(letrec ((add (lambda (counter x)"
+                        " (let ((counter (+ counter x)))"
+                        " (cons counter (commit (add counter)))))))"
+                        " (add 0))")
+CHAIN_PREDICTED = {"chain prove": "5-10", "chain compress": "5-8",
+                   "chain verify": "1-2.5", "stream prove": "1-3",
+                   "stream compress": "5-8", "stream verify": "1-2.5",
+                   "dump": "0.2-0.5", "resume": "0.2-1",
+                   "entry point": "10-20", "phase 17": "45-80"}
+CHAIN_TIMEOUT_S = 600
+
+
+def http_json(port: int, path: str, body=None):
+    """(status, JSON) of a GET to 127.0.0.1:port, or of a POST of
+    ``body``."""
+    import urllib.error
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=CHAIN_TIMEOUT_S) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def chain_result(resp: dict) -> int:
+    return int(resp["result"]["root"]["digest"], 16)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def last_chain_times(what: str, call: int = None) -> dict:
+    """The last call's ``chain.*`` seconds, keyed ``"{what} prove"``,
+    ``"... compress"``, ``"... verify"`` (and a stream's ``"dump"``),
+    each followed by the call's number when given."""
+    from lurk_tpu_torch.utils import metrics
+    suffix = "" if call is None else f" {call}"
+    out = {f"{what} {p}{suffix}": metrics.values(f"chain.{p}")[-1]
+           for p in ("prove", "compress", "verify")}
+    if what == "stream":
+        out[f"dump{suffix}"] = metrics.values("chain.dump_session")[-1]
+    return out
+
+
+class ChainCall:
+    """One call of a chain server's state, run with every count at 0:
+    its K1 waves and launches, its K6 launches by curve, and each
+    recorded commit's kernel timed alone (``kernel_alone``)."""
+
+    def __init__(self, bound, what: str, call):
+        from lurk_tpu_torch.msm import kernel as M
+        from lurk_tpu_torch.poseidon import kernel as K
+        reset_counts()
+        with WaveRecorder() as rec, CommitRecorder() as crec:
+            t0 = time.perf_counter()
+            self.resp = call()
+            torch.cuda.synchronize()
+            self.seconds = time.perf_counter() - t0
+            self.k1 = K.launches
+            self.by = dict(M.launches_by_curve)
+        self.waves = rec.waves
+        check("error" not in self.resp, f"{what}: {self.resp.get('error')}")
+        check(self.k1 == len(self.waves), f"{what}: {self.k1} K1 launches "
+              f"for {len(self.waves)} batched waves")
+        self.timed = kernel_alone(bound, crec.records)
+        check(len(self.timed) == sum(self.by.values()),
+              f"{what}: {len(self.timed)} commits of 64 or more scalars, "
+              f"{sum(self.by.values())} K6 launches")
+        self.ms = sum(t[2] for t in self.timed)
+        self.bound_ms = sum(t[3] for t in self.timed)
+
+    def line(self) -> str:
+        from lurk_tpu_torch.utils import metrics
+        parts = ""
+        if "proof_verified" in self.resp:
+            parts = ", ".join(f"{k} {metrics.values('chain.' + k)[-1]:.2f}"
+                              for k in ("prove", "compress", "verify")) + \
+                " s; "
+        return (f"{self.seconds:.2f} s ({parts}K1 waves {self.waves or 'none'}"
+                f" of 64 or more, {self.k1} launches; K6 {self.by or 'none'},"
+                f" kernels alone {self.ms:.3f} ms, bound "
+                f"{self.bound_ms:.3f} ms)")
+
+
+def phase17(bound, gen, dev) -> dict:
+    """The chain server on the card. 17.1: ChainState over the commit
+    counter on a Store(BN256, cuda) at rc = CHAIN_RC, behind ``serve`` on
+    a free local port: GET /config, POST /chain 9 without a proof, then
+    12 with one (the Nova cycle's public parameters cold at CHAIN_RC,
+    the BN254 key sized from the SRS on disk as a new server's, prove,
+    compress, verify): results 9 and 21, proof_verified. 17.2:
+    StreamState over the plain counter with a session file: proving
+    calls 3 and 4, the session dumped after each (size and write time),
+    StreamState.resume in a fresh CUDA store (its accumulator's JSON
+    equal to the dumped one), a third proving call 5: results 3, 7 and
+    12, proof_steps growing, the resumed snark's finish() verified. 17.3:
+    ``python -m lurk_tpu_torch.cli.chain_server --device cuda`` in a
+    child on a free port: GET /config and POST /chain without a proof,
+    then the child interrupted (exit 0). Each call runs with every
+    count at 0; its K1 waves, K6 launches by curve and each commit's
+    kernel alone are printed with prove, compress and verify seconds."""
+    import signal
+    from lurk_tpu_torch.cli import chain_server as cs
+    from lurk_tpu_torch.cli.lurk_proof import cycle_snark_to_json
+    from lurk_tpu_torch.fields import BN256_SCALAR
+    from lurk_tpu_torch.lem.evaluation import evaluate
+    from lurk_tpu_torch.parser import read_with_default_state
+    from lurk_tpu_torch.proof import hyperkzg as hk
+    from lurk_tpu_torch.proof import prover_cycle as pcy
+    from lurk_tpu_torch.store.core import Store
+
+    t_start = time.perf_counter()
+    times = {}
+    calls = []
+    hk._SRS_MEM.clear()        # the BN254 key as a new server sizes it
+
+    def callable_of(store, src):
+        return evaluate(None, read_with_default_state(store, src), store,
+                        1000)[-1].output[0]
+
+    # ---- 17.1: ChainState behind the HTTP server ----
+    store = Store(BN256_SCALAR, device=dev)
+    state = cs.ChainState(store, callable_of(store, CHAIN_COMMIT_COUNTER),
+                          rc=CHAIN_RC)
+    server = cs.serve(state, port=0)
+    port = server.server_address[1]
+    try:
+        status, cfg = http_json(port, "/config")
+        check(status == 200 and cfg["field"] == BN256_SCALAR.name
+              and cfg["rc"] == CHAIN_RC and cfg["calls"] == 0,
+              f"GET /config: {status} {cfg}")
+        plain = ChainCall(bound, "POST /chain 9", lambda: http_json(
+            port, "/chain", {"arg_num": 9, "prove": False})[1])
+        proved = ChainCall(bound, "POST /chain 12 with a proof",
+                           lambda: http_json(port, "/chain", {
+                               "arg_num": 12, "prove": True})[1])
+    finally:
+        server.shutdown()
+        server.server_close()
+    check([chain_result(plain.resp), chain_result(proved.resp)] == [9, 21],
+          f"results {chain_result(plain.resp)}, {chain_result(proved.resp)};"
+          f" expected 9, 21")
+    check(proved.resp.get("proof_verified") is True
+          and proved.resp["proof_steps"] >= 1,
+          f"the proving call: {proved.resp.get('proof_verified')}, "
+          f"{proved.resp.get('proof_steps')} steps")
+    check(proved.by.get("bn254-g1", 0) > 0 and proved.by.get("grumpkin", 0)
+          > 0, f"the proving call's K6 launches {proved.by}")
+    times.update(last_chain_times("chain"))
+    calls += [plain, proved]
+    print(f"phase 17.1: ChainState (commit counter, rc={CHAIN_RC}) behind "
+          f"serve on 127.0.0.1:{port}: /config {cfg}; /chain 9 without a "
+          f"proof -> 9 in {plain.line()}; /chain 12 with a proof -> 21, "
+          f"{proved.resp['iterations']} iterations, "
+          f"{proved.resp['proof_steps']} steps, verified, in {proved.line()}")
+
+    # ---- 17.2: StreamState, one proof across calls, dump and resume ----
+    session = Path(os.environ["LURK_TPU_CACHE"]) / "chain_stream.json"
+    store = Store(BN256_SCALAR, device=dev)
+    stream = cs.StreamState(store, callable_of(store, CHAIN_COUNTER),
+                            rc=CHAIN_RC, session=session)
+    results, steps = [], []
+    for i, n in enumerate((3, 4)):
+        call = ChainCall(bound, f"stream call {n}",
+                         lambda: stream.chain(store.num(n)))
+        calls.append(call)
+        results.append(chain_result(call.resp))
+        steps.append(call.resp["proof_steps"])
+        check(call.resp.get("proof_verified") is True,
+              f"stream call {n} does not verify")
+        times.update(last_chain_times("stream", i + 1))
+        print(f"phase 17.2: stream call {n} -> {results[-1]}, "
+              f"{call.resp['proof_steps']} steps, verified, in {call.line()};"
+              f" session {session.stat().st_size:,} bytes written in "
+              f"{times[f'dump {i + 1}']:.2f} s")
+    dumped = json.loads(session.read_text())["snark"]
+    t0 = time.perf_counter()
+    resumed = cs.StreamState.resume(session, Store(BN256_SCALAR, device=dev))
+    times["resume"] = time.perf_counter() - t0
+    check(cycle_snark_to_json(resumed.snark) == dumped and resumed.calls == 2,
+          "the resumed accumulator differs from the dumped one")
+    call = ChainCall(bound, "stream call 5 (resumed)",
+                     lambda: resumed.chain(resumed.store.num(5)))
+    calls.append(call)
+    results.append(chain_result(call.resp))
+    steps.append(call.resp["proof_steps"])
+    times.update(last_chain_times("stream", 3))
+    check(results == [3, 7, 12], f"stream results {results}, expected "
+          f"[3, 7, 12]")
+    check(steps[0] < steps[1] < steps[2], f"proof_steps {steps} do not grow")
+    check(call.resp.get("proof_verified") is True,
+          "the resumed stream's call does not verify")
+    t0 = time.perf_counter()
+    ok = pcy.CycleNovaProver.verify(resumed.pp, resumed.snark.finish())
+    torch.cuda.synchronize()
+    check(ok, "CycleNovaProver.verify rejects the resumed stream's proof")
+    print(f"phase 17.2: resumed in a fresh Store(BN256, cuda) in "
+          f"{times['resume']:.2f} s (accumulator equal to the dump); call 5 "
+          f"-> 12, {steps[2]} steps, verified, in {call.line()}; session "
+          f"{session.stat().st_size:,} bytes in {times['dump 3']:.2f} s; the "
+          f"finished proof of {steps[2]} steps verifies "
+          f"({time.perf_counter() - t0:.2f} s)")
+
+    # ---- 17.3: the entry point in a child process ----
+    port = free_port()
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "lurk_tpu_torch.cli.chain_server", "--device",
+         "cuda", "--port", str(port), "--callable", CHAIN_COUNTER],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        cfg = None
+        while cfg is None and time.perf_counter() - t0 < CHAIN_TIMEOUT_S:
+            if child.poll() is not None:
+                check(False, f"the chain server child exited "
+                      f"{child.returncode}: {child.stderr.read()[-2000:]}")
+            try:
+                cfg = http_json(port, "/config")
+            except OSError:
+                time.sleep(0.2)
+        check(cfg is not None and cfg[0] == 200 and cfg[1]["rc"] == CHAIN_RC,
+              f"the child's /config: {cfg}")
+        status, out = http_json(port, "/chain", {"arg_num": 3})
+        check(status == 200 and chain_result(out) == 3
+              and "proof_steps" not in out, f"the child's /chain: {status} "
+              f"{out}")
+    finally:
+        if child.poll() is None:
+            child.send_signal(signal.SIGINT)
+        try:
+            stdout, stderr = child.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            stdout, stderr = child.communicate()
+    times["entry point"] = time.perf_counter() - t0
+    check(child.returncode == 0 and "listening on 127.0.0.1" in stdout,
+          f"the chain server child: exit {child.returncode}, stdout "
+          f"{stdout!r}, stderr {stderr[-2000:]!r}")
+    print(f"phase 17.3: python -m lurk_tpu_torch.cli.chain_server --device "
+          f"cuda --port {port}: /config {cfg[1]}, /chain 3 -> 3, stopped "
+          f"(exit 0) in {times['entry point']:.1f} s")
+
+    times["phase 17"] = time.perf_counter() - t_start
+    waves = [w for c in calls for w in c.waves]
+    k1 = {"launches": sum(c.k1 for c in calls), "ms": 0.0, "plain_ms": 0.0,
+          "bound_ms": 0.0, "max_abs_err": 0}
+    if waves:
+        k1_ms, k1_plain, k1_bound, k1_err, _ = waves_alone(bound, gen, dev,
+                                                           waves)
+        k1.update(ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_bound,
+                  max_abs_err=k1_err)
+    k6 = {"launches": sum(len(c.timed) for c in calls),
+          "ms": sum(c.ms for c in calls),
+          "bound_ms": sum(c.bound_ms for c in calls), "plain_ms": 0.0}
+
+    def predicted(k: str) -> str:          # "stream prove 2": its kind's
+        return CHAIN_PREDICTED.get(k) or CHAIN_PREDICTED[k.rsplit(" ", 1)[0]]
+    print("phase 17: the chain server, seconds (host clock): "
+          + ", ".join(f"{k} {v:.2f} (predicted {predicted(k)})"
+                      for k, v in times.items()))
+    return {"k1": k1, "k6": k6, "times": times}
+
+
 def imad_rate(sms: int):
     """(32-bit IMAD per second, SM clock in MHz under that load) from
     csrc/imad_rate.cu: CUDA events over IMAD_LAUNCHES back-to-back
@@ -3080,14 +3374,27 @@ def main() -> int:
           f"(factorial {MEMOSET_FACTORIAL}) through MemosetProver "
           f"{t['nivc prove + verify']:.1f} s; phase 16 {t['phase 16']:.1f} s")
 
+    # ---- phase 17: the chain server ----
+    chain = phase17(bound, gen, dev)
+    elapsed("17", t_all)
+    t = chain["times"]
+    print(f"the chain server (rc={CHAIN_RC}): ChainState's proving call "
+          f"prove {t['chain prove']:.1f} s (the public parameters cold) + "
+          f"compress {t['chain compress']:.1f} s + verify "
+          f"{t['chain verify']:.1f} s; StreamState's calls prove "
+          + " / ".join(f"{t[f'stream prove {i}']:.1f}" for i in (1, 2, 3))
+          + " s, compress "
+          + " / ".join(f"{t[f'stream compress {i}']:.1f}" for i in (1, 2, 3))
+          + f" s; phase 17 {t['phase 17']:.1f} s")
+
     for part in (fold, cycle, comp, nova_cycle, nivc, cli["k6"],
-                 coproc["k6"], circ["k6"], memo["k6"]):
+                 coproc["k6"], circ["k6"], memo["k6"], chain["k6"]):
         for k in ("launches", "ms", "bound_ms"):
             msm[k] += part[k]
-    for part in (cli["k1"], coproc["k1"], memo["k1"]):
+    for part in (cli["k1"], coproc["k1"], memo["k1"], chain["k1"]):
         for k in ("launches", "ms", "bound_ms"):
             sparse[k] += part[k]
-    for part in (coproc["k1"], memo["k1"]):
+    for part in (coproc["k1"], memo["k1"], chain["k1"]):
         sparse["plain_ms"] += part["plain_ms"]
         sparse["max_abs_err"] = max(sparse["max_abs_err"],
                                     part["max_abs_err"])

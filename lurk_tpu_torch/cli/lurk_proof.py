@@ -12,9 +12,9 @@ The writers take Python ints (and their subclasses, such as the tags)
 only: a tensor or a numpy scalar raises ``TypeError`` instead of
 reaching the file. Field vectors may be
 :class:`..hostlib.r1cs.PackedVec`; the readers return lists of ints,
-which every verifier takes. The readers do not read the separate
-HyperKZG openings (``hkzg_w``/``hkzg_e``) of the JAX package's older
-proofs: the port's Spartan opens W and E jointly only.
+which every verifier takes. The port's Spartan opens W and E jointly
+(``hkzg_joint``); the separate HyperKZG openings (``hkzg_w``/``hkzg_e``)
+of the JAX package's older proofs are read, and verified, too.
 """
 
 from __future__ import annotations
@@ -149,6 +149,11 @@ def _spartan_to_json(sp) -> dict:
             "comms": [[_pt(q) for q in cms] for cms in j.comms],
             "evals": [[_hexes(ev) for ev in evs] for evs in j.evals],
             "w": _pt(j.w), "wp": _pt(j.wp)}
+    elif sp.hkzg_w is not None:
+        for name, pr in (("hkzg_w", sp.hkzg_w), ("hkzg_e", sp.hkzg_e)):
+            out[name] = {"comms": [_pt(q) for q in pr.comms],
+                         "evals": [_hexes(ev) for ev in pr.evals],
+                         "quotients": [_pt(q) for q in pr.quotients]}
     else:
         for name, pr in (("ipa_w", sp.ipa_w), ("ipa_e", sp.ipa_e)):
             out[name] = {"ls": [_pt(q) for q in pr.ls],
@@ -158,13 +163,18 @@ def _spartan_to_json(sp) -> dict:
 
 
 def _spartan_from_json(d: dict):
-    from ..proof.hyperkzg import HkzgBatchProof
+    from ..proof.hyperkzg import HkzgBatchProof, HkzgProof
     from ..proof.ipa import IpaProof
     from ..proof.spartan import SpartanProof
 
     def ipa(v):
         return IpaProof([_un_pt(q) for q in v["ls"]],
                         [_un_pt(q) for q in v["rs"]], int(v["a"], 16))
+
+    def hkzg(v):
+        return HkzgProof([_un_pt(q) for q in v["comms"]],
+                         [tuple(_ints(ev)) for ev in v["evals"]],
+                         [_un_pt(q) for q in v["quotients"]])
 
     base = [[_ints(row) for row in d["sc1"]], tuple(_ints(d["claims"])),
             [_ints(row) for row in d["sc2"]], int(d["w_eval"], 16)]
@@ -174,11 +184,10 @@ def _spartan_from_json(d: dict):
             [[_un_pt(q) for q in cms] for cms in v["comms"]],
             [[tuple(_ints(ev)) for ev in evs] for evs in v["evals"]],
             _un_pt(v["w"]), _un_pt(v["wp"]))
-        return SpartanProof(*base, None, None, joint)
+        return SpartanProof(*base, None, None, hkzg_joint=joint)
     if "hkzg_w" in d:
-        raise ValueError("separate HyperKZG openings of W and E (an older "
-                         "proof format) are not read; W and E open "
-                         "jointly (hkzg_joint)")
+        return SpartanProof(*base, None, None, hkzg(d["hkzg_w"]),
+                            hkzg(d["hkzg_e"]))
     return SpartanProof(*base, ipa(d["ipa_w"]), ipa(d["ipa_e"]))
 
 
@@ -233,6 +242,51 @@ def _relaxed_wit_to_json(w) -> dict:
 
 def _relaxed_wit_from_json(d: dict) -> RelaxedWitness:
     return RelaxedWitness(_ints(d["w"]), _ints(d["e"]))
+
+
+def _packed_wit_from_json(d: dict, p: int) -> RelaxedWitness:
+    return RelaxedWitness(PackedVec.pack(_ints(d["w"]), p),
+                          PackedVec.pack(_ints(d["e"]), p))
+
+
+def cycle_snark_to_json(snark) -> dict:
+    """A live :class:`..proof.nova_cycle.CycleSNARK` accumulator as JSON
+    (the chain server's session dumps: the reference serializes the
+    running RecursiveSNARK itself, chain-server/src/server.rs:427-440
+    StreamSessionData). The JAX package's fields, in its order; the
+    folded ``Az1|Bz1|Cz1`` is left out, and recomputed by the first
+    step after a resume."""
+    pending = None
+    if snark.pending is not None:
+        u, wvec = snark.pending
+        pending = {**_inst_to_json(u), "w": _hexes(wvec)}
+    return {"z0": _hexes(snark.z0), "zi": _hexes(snark.zi), "i": snark.i,
+            "h": _hex(snark.h), "g": _hex(snark.g),
+            "u1": _relaxed_to_json(snark.U1),
+            "w1": _relaxed_wit_to_json(snark.W1),
+            "u2": _relaxed_to_json(snark.U2),
+            "w2": _relaxed_wit_to_json(snark.W2),
+            "pending": pending}
+
+
+def cycle_snark_from_json(d: dict, pp):
+    """The accumulator of :func:`cycle_snark_to_json` over ``pp``."""
+    from ..proof.nova_cycle import CycleSNARK
+    p1, p2 = pp.field1.modulus, pp.field2.modulus
+    snark = CycleSNARK(pp, _ints(d["z0"]))
+    snark.zi = _ints(d["zi"])
+    snark.i = d["i"]
+    snark.h = int(d["h"], 16)
+    snark.g = int(d["g"], 16)
+    snark.U1 = _relaxed_from_json(d["u1"])
+    snark.W1 = _packed_wit_from_json(d["w1"], p1)
+    snark.U2 = _relaxed_from_json(d["u2"])
+    snark.W2 = _packed_wit_from_json(d["w2"], p2)
+    pend = d["pending"]
+    if pend is not None:
+        snark.pending = (_inst_from_json(pend),
+                         PackedVec.pack(_ints(pend["w"]), p2))
+    return snark
 
 
 def _cycle_head(p) -> dict:

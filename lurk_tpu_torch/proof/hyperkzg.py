@@ -2,8 +2,10 @@
 
 The port of the JAX package's ``proof/hyperkzg.py``: the powers-of-tau
 SRS (``load_srs``; the BN254 G1 commitment key is the SRS,
-``proof/nova.py``) and the joint opening protocol (``prove_batch``,
-``verify_batch``), the one Spartan uses. The reference's default BN256
+``proof/nova.py``), the joint opening protocol (``prove_batch``,
+``verify_batch``), the one Spartan uses, and the verifier of a single
+opening (``verify``), which older proofs carry for W and E each. The
+reference's default BN256
 engine is `Bn256EngineKZG`, whose evaluation engine is HyperKZG
 (reference src/proof/nova.rs:56-71; arecibo provider::hyperkzg): a
 multilinear evaluation claim is reduced to univariate KZG openings
@@ -192,6 +194,80 @@ def _sub_prefix(arr: np.ndarray, vals: Sequence[int], r: int,
     m = len(vals)
     pref = PackedVec(arr[:4 * m], m, q)
     arr[:4 * m] = hr.vec_rlc_pv(q, pref, PackedVec.pack(vals, q), r).arr
+
+
+# ---------------------------------------------------------------------------
+# A single opening (verify only: older proofs open W and E apart)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class HkzgProof:
+    """One claim's Gemini fold chain (v_1..v_{k-1} committed), each
+    chain poly's evaluations at (r, -r, r^2), and one quotient commit a
+    point of the batched univariate KZG opening."""
+
+    comms: List[Affine]
+    evals: List[Tuple[int, int, int]]
+    quotients: List[Affine]
+
+
+def verify(srs: Srs, comm: Affine, point: Sequence[int], value: int,
+           proof: HkzgProof, tr: Transcript) -> bool:
+    """Check W~(point) = value for ``comm`` from a single opening: the
+    fold chain's consistency at r^2, then one two-pairing check over the
+    three points batched by delta (the JAX package's ``verify``)."""
+    q = CURVE.order
+    k = len(point)
+    if len(proof.comms) != k - 1 or len(proof.evals) != k or \
+            len(proof.quotients) != 3:
+        return False
+    xs = [v % q for v in reversed(point)]
+    for cm in proof.comms:
+        tr.absorb_point(cm)
+    r = tr.squeeze() % q or 1
+    zs = (r, (-r) % q, r * r % q)
+    for ev in proof.evals:
+        if len(ev) != 3:
+            return False
+        for v in ev:
+            tr.absorb_scalar(v)
+    gamma = tr.squeeze() % q
+    for w in proof.quotients:
+        tr.absorb_point(w)
+    inv2 = pow(2, q - 2, q)
+    inv2r = pow(2 * r % q, q - 2, q)
+    for i in range(k):
+        er, enr, _ = proof.evals[i]
+        nxt = ((1 - xs[i]) * (er + enr) % q * inv2 +
+               xs[i] * (er - enr) % q * inv2r) % q
+        want = proof.evals[i + 1][2] if i + 1 < k else value % q
+        if nxt != want:
+            return False
+    delta = tr.squeeze() % q
+    all_comms = [comm] + list(proof.comms)
+    agg_c: Affine = None
+    agg_w: Affine = None
+    d = 1
+    for j, z in enumerate(zs):
+        # d_j (C_B - [B(z)]_1 + z W_j), C_B = sum_i gamma^i C_i
+        g = 1
+        cb: Affine = None
+        bz = 0
+        for i, cm in enumerate(all_comms):
+            cb = CURVE.add(cb, CURVE.mul(g, cm))
+            bz = (bz + g * proof.evals[i][j]) % q
+            g = g * gamma % q
+        wj = proof.quotients[j]
+        term = CURVE.add(cb, CURVE.neg(CURVE.mul(bz, CURVE.generator)))
+        term = CURVE.add(term, CURVE.mul(z, wj))
+        agg_c = CURVE.add(agg_c, CURVE.mul(d, term))
+        agg_w = CURVE.add(agg_w, CURVE.mul(d, wj))
+        d = d * delta % q
+    return pr.pairing_product_is_one([
+        (agg_c, srs.g2),
+        (CURVE.neg(agg_w) if agg_w else None, srs.tau_g2),
+    ])
 
 
 # ---------------------------------------------------------------------------

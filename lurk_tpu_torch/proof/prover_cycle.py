@@ -16,9 +16,9 @@ time the parent waits for each goes to :mod:`..utils.metrics` as
 ``nova_cycle.witness``. A ``Lang``'s coprocessors run inside the
 universal step (IVC: ``make_eval_step(specs, True)``), each through its
 circuit; a coprocessor with no circuit makes the prove raise
-``SynthesisError``. Left out of the JAX prover: the resume argument
-``init`` of ``prove_incremental``, whose only caller is the chain
-server.
+``SynthesisError``. ``prove_incremental`` folds into a running
+accumulator and returns it live: the chain server's stream extends one
+proof across calls.
 """
 
 from __future__ import annotations
@@ -121,8 +121,23 @@ class CycleNovaProver:
         return pp, proof, frames
 
     @instrument("nova_cycle.prove_from_frames")
-    def prove_from_frames(self, store: Store, frames: List[Frame]
+    def prove_from_frames(self, store: Store, frames: List[Frame],
+                          init: Optional[CycleSNARK] = None
                           ) -> Tuple[CyclePublicParams, CycleProof]:
+        pp, snark = self.prove_incremental(store, frames, init)
+        return pp, snark.finish()
+
+    def prove_incremental(self, store: Store, frames: List[Frame],
+                          init: Optional[CycleSNARK] = None
+                          ) -> Tuple[CyclePublicParams, CycleSNARK]:
+        """Fold ``frames`` into ``init`` (a new accumulator when None)
+        and return it live, so that a caller can fold later frames into
+        the same proof (the reference's resumable prove, proof/mod.rs:
+        185-187; the chain server carries it across calls,
+        chain-server/src/server.rs:445-548). ``snark.finish()`` leaves
+        the accumulator as it was. Raises ``ValueError`` when ``init``
+        belongs to other public parameters or its state does not chain
+        into the first chunk's input."""
         if not frames:
             raise ValueError("no frames to prove")
         store.hydrate_z_cache()
@@ -131,7 +146,17 @@ class CycleNovaProver:
                                          self.lang)
         pp = cycle_public_params(store, self.rc, step, self.lang,
                                  self.device)
-        snark = CycleSNARK(pp, mframes[0].z_in)
+        if init is None:
+            snark = CycleSNARK(pp, mframes[0].z_in)
+        else:
+            snark = init
+            if snark.pp is not pp and snark.pp.pp_digest != pp.pp_digest:
+                raise ValueError("the resumed snark belongs to other public "
+                                 "parameters")
+            if list(snark.zi) != [v % pp.field1.modulus
+                                  for v in mframes[0].z_in]:
+                raise ValueError("the resumed snark's state does not chain "
+                                 "into these frames")
         jobs = self.witness_jobs(store, mframes)
         caches = witness_pool.step_witnesses(store, pp.cfg1.step_fn, jobs,
                                              self.check_steps)
@@ -140,7 +165,7 @@ class CycleNovaProver:
                 cache = next(caches)
             snark.prove_step(mf.z_out, step_aux=aux, check=self.check_steps,
                              step_cache=cache)
-        return pp, snark.finish()
+        return pp, snark
 
     @staticmethod
     def witness_jobs(store: Store, mframes: List[MultiFrame]):

@@ -67,7 +67,10 @@ class SpartanProof:
     ipa_e: Optional[ipa.IpaProof]
     # BN254's engine (nova.rs:56-71 Bn256EngineKZG): pairing-verified
     # HyperKZG openings instead of IPA. W and E open jointly via the
-    # Shplonk batch argument.
+    # Shplonk batch argument; the separate openings of older proofs are
+    # verified, never made.
+    hkzg_w: Optional[hk.HkzgProof] = None
+    hkzg_e: Optional[hk.HkzgProof] = None
     hkzg_joint: Optional[hk.HkzgBatchProof] = None
 
 
@@ -144,7 +147,7 @@ def prove(pp: PublicParams, inst: RelaxedInstance,
             joint = hk.prove_batch(pp.ck, [(w_padded, ry[1:]),
                                            (e_vec, rx)], tr)
         return SpartanProof(sc1_polys, (az_r, bz_r, cz_r, e_r),
-                            sc2_polys, w_eval, None, None, joint)
+                            sc2_polys, w_eval, None, None, hkzg_joint=joint)
     with metrics.timed("spartan.ipa_open"):
         ipa_w = ipa.prove(pp.curve, pp.ck.gens, inst.comm_w,
                           w_padded.ints(), hsc.chi_table(ry[1:], p),
@@ -210,12 +213,15 @@ def verify(pp: PublicParams, inst: RelaxedInstance,
         return False
     tr.absorb_scalar(w_eval)
     if _uses_kzg(pp):
-        if proof.hkzg_joint is None:
+        srs = hk.load_srs(max(n_half, m_pad))
+        if proof.hkzg_joint is not None:
+            return hk.verify_batch(
+                srs, [(inst.comm_w, ry[1:], w_eval), (inst.comm_e, rx, e_r)],
+                proof.hkzg_joint, tr)
+        if proof.hkzg_w is None or proof.hkzg_e is None:
             return False
-        return hk.verify_batch(
-            hk.load_srs(max(n_half, m_pad)),
-            [(inst.comm_w, ry[1:], w_eval), (inst.comm_e, rx, e_r)],
-            proof.hkzg_joint, tr)
+        return (hk.verify(srs, inst.comm_w, ry[1:], w_eval, proof.hkzg_w, tr)
+                and hk.verify(srs, inst.comm_e, rx, e_r, proof.hkzg_e, tr))
     if proof.ipa_w is None or proof.ipa_e is None:
         return False
     if not ipa.verify(pp.curve, pp.ck.gens, inst.comm_w, chi_ry1,

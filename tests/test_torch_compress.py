@@ -10,10 +10,14 @@ on the CPU. Integers only: tolerance 0.
   domains): the port's proof equals the JAX package's field by field on
   BN254 (HyperKZG, its joint opening) and on Grumpkin (IPA), and each
   verifier accepts the other's proof. So do HyperKZG's joint opening
-  and the IPA at 2^6 on their own. The host C++'s padded matvecs, M
-  vector and matrix evaluations equal the JAX Python loops; and
-  ``spartan.compress`` / ``verify_compressed`` round-trip a two-step
-  Nova fold, which the JAX ``verify_compressed`` accepts. The JAX side
+  and the IPA at 2^6 on their own. A JAX Spartan proof with separate
+  HyperKZG openings of W and E (the older form, made by patching the
+  JAX joint opening), written by the JAX writer, is read and accepted
+  by the port, and rejected with one evaluation changed. The host
+  C++'s padded matvecs, M vector and matrix evaluations equal the JAX
+  Python loops; and ``spartan.compress`` / ``verify_compressed``
+  round-trip a two-step Nova fold, which the JAX ``verify_compressed``
+  accepts. The JAX side
   takes its Python paths (its host C++ for Spartan, R1CS, SRS and
   generators patched unavailable).
 - The rc = 1 cycle fold of ``(+ 1 2)``, compressed by the port: the
@@ -32,6 +36,7 @@ on the CPU. Integers only: tolerance 0.
 """
 
 import dataclasses
+import json
 import os
 import pathlib
 import pickle
@@ -42,6 +47,7 @@ import threading
 import numpy as np
 import pytest
 
+import lurk_tpu.cli.lurk_proof as jax_lurk_proof
 import lurk_tpu.native.msm as jax_native_msm
 import lurk_tpu.native.pedersen as jax_native_pedersen
 import lurk_tpu.native.poseidon as jax_native_poseidon
@@ -61,6 +67,7 @@ from lurk_tpu.curves.weierstrass import CURVE_FOR_FIELD as JAX_CURVES
 from lurk_tpu.fields import BN256_SCALAR as JAX_BN256
 from lurk_tpu.r1cs.cs import ConstraintSystem as JaxCS
 from lurk_tpu.store.core import Store as JaxStore
+from lurk_tpu_torch.cli import lurk_proof
 from lurk_tpu_torch.curves.weierstrass import BN254_G1, GRUMPKIN
 from lurk_tpu_torch.fields import BN256_SCALAR
 from lurk_tpu_torch.hostlib import r1cs as hr
@@ -509,6 +516,39 @@ def test_ipa_matches_jax(small):
                       Transcript(GRUMPKIN, b"i"))
     assert not ipa.verify(GRUMPKIN, gens, comm, b, (c + 1) % q, pf,
                           Transcript(GRUMPKIN, b"i"))
+
+
+def test_separate_hyperkzg_openings_from_a_jax_file(small, tmp_path,
+                                                    monkeypatch):
+    """The older proof form, verify only. The JAX Spartan prover, its
+    joint opening replaced by separate openings of W and E (the JAX
+    single-opening ``prove``, one after the other on one transcript),
+    gives a proof that, rebuilt with ``hkzg_w``/``hkzg_e``, the JAX
+    verifier accepts; the JAX writer writes it to a file. The port reads
+    the file, writes it back to the same JSON, accepts it, and rejects
+    it with one evaluation changed, as the JAX verifier does."""
+    s = small["bn254-g1"]
+    q = BN254_G1.order
+    monkeypatch.setattr(jax_hk, "prove_batch", lambda srs, opens, tr: [
+        jax_hk.prove(srs, poly, point, tr) for poly, point in opens])
+    jsp = jax_spartan.prove(s["jpp"], s["jinst"], s["jwit"])
+    pw, pe = jsp.hkzg_joint
+    jsp = dataclasses.replace(jsp, hkzg_w=pw, hkzg_e=pe, hkzg_joint=None)
+    assert jax_spartan.verify(s["jpp"], s["jinst"], jsp)
+    path = tmp_path / "spartan.json"
+    path.write_text(json.dumps(jax_lurk_proof._spartan_to_json(jsp)))
+    d = json.loads(path.read_text())
+    assert "hkzg_w" in d and "hkzg_joint" not in d
+    sp = lurk_proof._spartan_from_json(d)
+    assert sp.hkzg_joint is None and len(sp.hkzg_e.evals) == 6
+    assert lurk_proof._spartan_to_json(sp) == d
+    assert spartan.verify(s["pp"], s["inst"], sp)
+    ev = d["hkzg_e"]["evals"][2]
+    ev[1] = f"{(int(ev[1], 16) + 1) % q:x}"
+    assert not spartan.verify(s["pp"], s["inst"],
+                              lurk_proof._spartan_from_json(d))
+    assert not jax_spartan.verify(s["jpp"], s["jinst"],
+                                  jax_lurk_proof._spartan_from_json(d))
 
 
 # ---------------------------------------------------------------------------

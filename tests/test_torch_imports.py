@@ -1,8 +1,8 @@
 """The port imports neither jax nor anything of the JAX package, at run
 time (every module imported in a fresh interpreter) and in its source
 (every import statement of the package, of chip_smoke.py and of the
-port's scripts); the circom coprocessor's and the memoset coroutines'
-modules among them."""
+port's scripts); the circom coprocessor's, the memoset coroutines', the
+chain server's, the Z stores' and foil's modules among them."""
 
 import ast
 import pathlib
@@ -86,3 +86,32 @@ def test_the_coroutine_modules_are_checked(name):
     sources checked above."""
     assert f"lurk_tpu_torch.coroutine.{name}" in set(_module_names())
     assert PORT / "coroutine" / f"{name}.py" in SOURCES
+
+
+SLICE_14_MODULES = ("cli.chain_server", "store.z_data", "store.z_legacy",
+                    "foil")
+
+
+@pytest.mark.parametrize("name", SLICE_14_MODULES)
+def test_the_chain_server_z_store_and_foil_modules_are_checked(name):
+    """The chain server, the ZData format, the legacy Z store and foil
+    are among the modules and sources checked above."""
+    assert f"lurk_tpu_torch.{name}" in set(_module_names())
+    assert PORT / (name.replace(".", "/") + ".py") in SOURCES
+
+
+@pytest.mark.parametrize("module, attr", [
+    ("proof.prover_cycle", "CycleNovaProver.prove_incremental"),
+    ("cli.lurk_proof", "cycle_snark_to_json"),
+    ("cli.lurk_proof", "cycle_snark_from_json"),
+    ("proof.hyperkzg", "verify"),
+])
+def test_the_slice_14_entry_points_are_in_checked_modules(module, attr):
+    """The incremental prove, the session dumps of its accumulator and
+    the single-opening HyperKZG verifier live in checked modules."""
+    import importlib
+    obj = importlib.import_module(f"lurk_tpu_torch.{module}")
+    for part in attr.split("."):
+        obj = getattr(obj, part)
+    assert callable(obj)
+    assert f"lurk_tpu_torch.{module}" in set(_module_names())
