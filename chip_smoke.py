@@ -53,8 +53,8 @@ Phases, each fatal on failure:
      2^17); Poseidon-4 at 2^17 and 2^20 against the bound, each held
      against the plain version (over chunks of 2^17 lanes) and on 8
      lanes against the host oracle; then ``python -m
-     lurk_tpu_torch.bench --schedule folded`` and ``--schedule sparse``
-     as subprocesses, each printing its one line;
+     lurk_tpu_torch.bench --schedule folded`` as a subprocess, printing
+     its one line;
   7. the step circuit: the blank frame's 11,057 constraints and 9,029
      aux, frame 0 of fib(100) fully synthesized with every constraint
      checked, witness-only equal to full synthesis on the first 5 frames
@@ -98,13 +98,14 @@ Phases, each fatal on failure:
      launch) accepts and rejects the proof with one sumcheck value
      changed; HyperKZG's K6 commits timed alone with their bounds; then
      fib(100) prove + compress + verify s and frames/s;
-  11. the Nova cycle (the JAX REPL's ``nova`` backend), on phase 2's
-     store: cycle_public_params(rc=100, cuda) built and timed (the
+  11. the Nova cycle (the JAX REPL's ``nova`` backend), on the first
+     PHASE11_FRAMES frames of phase 2's store: cycle_public_params(
+     rc=100, cuda) built and timed (the
      primary augmented circuit's full synthesis, its digest and save,
      the secondary's, the BN254 2^21 and Grumpkin 2^15 keys), then
      CycleNovaProver(rc=100, cuda).prove_from_frames with those objects:
-     8 steps, the step witnesses from the shared fork pool, 16 K6
-     launches on BN254 and 16 on Grumpkin, no Poseidon launch; each
+     4 steps, the step witnesses from the shared fork pool, 8 K6
+     launches on BN254 and 8 on Grumpkin, no Poseidon launch; each
      step's phase times (``nova_cycle.*``);
      verify (2 + 2 launches) accepts and rejects a changed entry of the
      final W1; each commit's kernel timed alone, step 0's W2 against the
@@ -114,8 +115,8 @@ Phases, each fatal on failure:
   12. NIVC (the JAX REPL's ``supernova`` backend), on the first
      PHASE12_FRAMES frames of phase 2's store:
      SuperNovaProver(rc=100, Lang(), cuda).prove_from_frames, its
-     ``-nivc`` shape built and saved in the prove (timed apart), 3
-     witnesses inline, W and T of 4 steps through K6 (8 launches);
+     ``-nivc`` shape built and saved in the prove (timed apart), 1
+     witness inline, W and T of 2 steps through K6 (4 launches);
      verify (2 launches) accepts and rejects a changed final witness
      entry; each commit's kernel timed alone; compress and
      verify_compressed accept, and reject a changed step input and a
@@ -190,7 +191,20 @@ Phases, each fatal on failure:
      every count at 0 and prints its prove, compress and verify seconds,
      its K1 waves and its K6 launches with their kernels timed alone;
      the session dumps' sizes and write times. Its launches and times
-     are in the kernels line.
+     are in the kernels line;
+  18. the example and bench entry points (scripts/torch_*.py), through
+     their functions in this process: ``torch_benches.trie_prove`` on
+     phase 14's evaluated and hydrated trie store at rc = 100 (the trie
+     Lang's public parameters cold and timed; 25 steps, 20 Lurk and 5
+     coprocessor, through the fork pool; verify; K6 launches by curve;
+     the result 12688603180; a changed final W1 rejected; the first
+     coprocessor step's W1 against the plain version);
+     ``torch_sha256_ivc.prove_sha256_ivc``: ``(sha256_ivc_1 1)`` through
+     NovaProver(rc=10, cuda), the inlined step's shape cold in the prove,
+     1 step, verify, a changed final W rejected; the synthesis bench at
+     rc = 100 on phase 2's store; itcalc's default table. Each part's
+     seconds beside PERF.md's prediction; its K1 waves and K6 launches
+     and times are in the kernels line.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -279,10 +293,13 @@ STEP_RC = 100                  # fib(100)'s 800 frames in 8 folding steps
 # and so each commit's width, is the same at 200 frames); no commit of
 # it is held against the plain version since phase 14 came
 PHASE8_FRAMES = 200
+# phase 11 (the Nova cycle): the frames it folds, cut from 800 to pay for
+# phase 18 (the same shapes and commit widths at 400 frames, 4 steps)
+PHASE11_FRAMES = 400
 # phase 12 (NIVC): the frames it folds, cut from 800 to pay for phase 15
 # (the same shape and commit widths at 400 frames, 3 inline witnesses
-# instead of 7)
-PHASE12_FRAMES = 400
+# instead of 7) and to 200 for phase 18 (2 steps, 1 inline witness)
+PHASE12_FRAMES = 200
 CHECK_RC = 5
 
 
@@ -429,26 +446,29 @@ MSM_BOUND_MAX_C = 22
 def msm_digits(w: torch.Tensor, c: int) -> torch.Tensor:
     """Every window's signed digit of width ``c`` (top window unsigned,
     as K6's) of the scalars ``w`` (int64[n, 8] of 32-bit words), as
-    int64[windows, n]: every window at once, then the recoding's carries
-    window by window."""
+    magnitudes in int64[windows, n]. The digits below the top window lie
+    in [1 - 2^(c-1), 2^(c-1)]; such a recoding is unique, so they are
+    the windows of s + H less 2^(c-1) - 1, with H = (2^(c-1) - 1) in
+    every window but the top one: one carried addition of H instead of
+    a carry window by window."""
     n_win = -(-256 // c)
-    mask, half, full = (1 << c) - 1, 1 << (c - 1), 1 << c
+    half = 1 << (c - 1)
+    offset = sum((half - 1) << (c * win) for win in range(n_win - 1))
+    s = torch.empty((w.shape[0], 9), dtype=torch.int64, device=w.device)
+    carry = 0
+    for k in range(8):
+        t = w[:, k] + ((offset >> (32 * k)) & 0xFFFFFFFF) + carry
+        s[:, k] = t & 0xFFFFFFFF
+        carry = t >> 32
+    s[:, 8] = carry
     bits = [win * c for win in range(n_win)]
     lo = torch.tensor([b // 32 for b in bits], device=w.device)
     sh = torch.tensor([b % 32 for b in bits], device=w.device)[:, None]
-    spans = torch.tensor([b % 32 + c > 32 and b // 32 + 1 < 8
-                          for b in bits], device=w.device)[:, None]
-    v = w[:, lo].T >> sh
-    hi = w[:, (lo + 1).clamp(max=7)].T << (32 - sh)
-    d = (torch.where(spans, v | hi, v) & mask).contiguous()
-    del v, hi
-    carry = torch.zeros(w.shape[0], dtype=torch.int64, device=w.device)
-    for win in range(n_win - 1):
-        dw = d[win] + carry
-        neg = dw > half
-        d[win] = torch.where(neg, full - dw, dw)
-        carry = neg.to(torch.int64)
-    d[n_win - 1] += carry
+    # the top window holds up to c + 1 bits (s + H < 2^257)
+    mask = torch.tensor([(1 << c) - 1] * (n_win - 1) + [(1 << (c + 1)) - 1],
+                        device=w.device)[:, None]
+    d = ((s[:, lo].T >> sh) | (s[:, lo + 1].T << (32 - sh))) & mask
+    d[:n_win - 1] = (d[:n_win - 1] - (half - 1)).abs()
     return d
 
 
@@ -1090,7 +1110,6 @@ def phase6(bound, gen, dev):
         print(text)
         rows[b] = (k_ms, p_ms, b_ms, by)
     run_bench("folded")
-    run_bench("sparse")
     k_ms, p_ms, b_ms, by = rows[bench.BATCH]
     return {"name": "poseidon_folded", "route": "cuda",
             "source": "lurk_tpu_torch/csrc/poseidon_folded.cu",
@@ -1729,12 +1748,13 @@ def phase11(bound, store, frames) -> dict:
         by = dict(M.launches_by_curve)
         poseidon = (K.launches, K.dense_launches, K.folded_launches)
         check(pp2 is pp, "the prove built other public parameters")
-        check(proof.n == len(frames) // STEP_RC == 8,
-              f"{proof.n} folding steps, expected 8")
-        check(by == {"bn254-g1": 16, "grumpkin": 16},
-              f"MSM launches by curve {by} in the prove, expected 16 + 16 "
-              f"(W1 and T1 of 8 steps; W2 of 8, T2 of steps 1-7 and "
-              f"finish's)")
+        n = PHASE11_FRAMES // STEP_RC
+        check(proof.n == len(frames) // STEP_RC == n,
+              f"{proof.n} folding steps, expected {n}")
+        check(by == {"bn254-g1": 2 * n, "grumpkin": 2 * n},
+              f"MSM launches by curve {by} in the prove, expected {2 * n} "
+              f"+ {2 * n} (W1 and T1 of {n} steps; W2 of {n}, T2 of steps "
+              f"1-{n - 1} and finish's)")
         check(poseidon == (0, 0, 0), f"Poseidon launches {poseidon} in the "
               "prove (the store was hydrated in phase 2)")
         check([(key.curve.name, vec.n) for key, vec, _ in rec.records] ==
@@ -1744,7 +1764,8 @@ def phase11(bound, store, frames) -> dict:
         times = {k: metrics.values(f"nova_cycle.{k}") for k in CYCLE_PHASES}
         tables = metrics.values("ck.table")
         print(f"phase 11.1: CycleNovaProver(rc={STEP_RC}, cuda)"
-              f".prove_from_frames(fib(100)): {proof.n} steps in "
+              f".prove_from_frames(fib(100)'s first {len(frames)} frames): "
+              f"{proof.n} steps in "
               f"{t_prove:.1f} s (the public parameters of 11.0 reused; "
               f"fork pool of {min(8, os.cpu_count() - 1)} workers; the "
               f"keys' tables built on the card in step 0's commits: "
@@ -1776,9 +1797,10 @@ def phase11(bound, store, frames) -> dict:
 
     t0 = time.perf_counter()
     timed = kernel_alone(bound, records)
-    check(len(timed) == 36, f"{len(timed)} commits timed, expected 36")
-    print_classes("prove", timed[:32])
-    print_classes("verify", timed[32:])
+    check(len(timed) == 4 * n + 4, f"{len(timed)} commits timed, expected "
+          f"{4 * n + 4}")
+    print_classes("prove", timed[:4 * n])
+    print_classes("verify", timed[4 * n:])
     key, vec, point = records[2]
     plain, plain_ms = plain_commit(
         key.curve, key.table(), vec.arr.view(np.uint32).reshape(vec.n, 8))
@@ -2131,6 +2153,7 @@ def phase14(bound, gen, dev) -> dict:
     k1_ms, k1_plain, k1_bound, k1_err, _ = waves_alone(bound, gen, dev, big)
     k1 = {"launches": launches, "ms": k1_ms, "plain_ms": k1_plain,
           "bound_ms": k1_bound, "max_abs_err": k1_err}
+    trie = (store, lang, frames)        # phase 18 proves it
 
     # ---- 14.2: the sha256 NIVC program through the SuperNova cycle ----
     # the keys as a new process sizes them (the SRS from the disk cache
@@ -2276,7 +2299,7 @@ def phase14(bound, gen, dev) -> dict:
                         lambda cp: sn.verify_compressed(npp, cp), bads)
     check(sorted(ncomp["cp"].spartans) == [0, 1],
           "the compressed NIVC proof lacks a circuit's Spartan proof")
-    return {"k1": k1,
+    return {"k1": k1, "trie": trie,
             "k6": {"launches": len(timed) + comp["launches"] + len(ntimed)
                    + ncomp["launches"],
                    "ms": ms + comp["ms"] + nms + ncomp["ms"],
@@ -3047,6 +3070,210 @@ def phase17(bound, gen, dev) -> dict:
     return {"k1": k1, "k6": k6, "times": times}
 
 
+# phase 18 (the example and bench entry points, scripts/torch_*.py): the
+# trie program's rc, the sha256 IVC's and the synthesis bench's, and each
+# part's seconds with the range PERF.md section 5 predicted before its
+# first run on the card
+TRIE_NIVC_RC = 100
+SHA256_IVC_RC = 10
+SYNTHESIS_RC = 100
+ENTRY_PREDICTED = {"trie public parameters": "25-45", "trie prove": "20-45",
+                   "trie verify": "2-5", "sha256_ivc": "15-40",
+                   "synthesis": "0.5-3", "phase 18": "80-120"}
+
+
+def phase18(bound, gen, dev, trie, store) -> dict:
+    """The entry points' new paths on the card, through the scripts'
+    functions. 18.1, ``torch_benches.py trie-nivc`` at rc = TRIE_NIVC_RC
+    on phase 14's evaluated and hydrated trie store (``trie`` = (store,
+    lang, frames)): the trie Lang's public parameters cold and timed,
+    ``trie_prove`` (SuperNovaCycleProver: 25 steps, 20 Lurk and 5
+    coprocessor, through the fork pool, then verify), K6 launches by
+    curve, the result 12688603180, a changed final W1 rejected, the
+    first coprocessor step's W1 against the plain version. 18.2,
+    ``torch_sha256_ivc.py``'s ``prove_sha256_ivc``: ``(sha256_ivc_1 1)``
+    through NovaProver(rc=SHA256_IVC_RC, cuda), the inlined step's shape
+    cold (built in the prove, timed), 1 step, verify and a changed
+    final W rejected. 18.3, ``torch_benches.py synthesis`` at
+    SYNTHESIS_RC on phase 2's store (``store``), timed. 18.4,
+    ``torch_itcalc.py``'s default table. Each part runs with every count
+    at 0; its K1 waves and K6 commits are timed alone."""
+    from lurk_tpu_torch.examples import TRIE_RESULT
+    from lurk_tpu_torch.hostlib.r1cs import PackedVec
+    from lurk_tpu_torch.msm import kernel as M
+    from lurk_tpu_torch.poseidon import kernel as K
+    from lurk_tpu_torch.proof import hyperkzg as hk
+    from lurk_tpu_torch.proof import nova, witness_pool
+    from lurk_tpu_torch.proof import prover_supernova_cycle as psc
+    from lurk_tpu_torch.proof.prover import NovaProver
+    from lurk_tpu_torch.utils import metrics
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import torch_benches
+    import torch_itcalc
+    import torch_sha256_ivc
+
+    t_start = time.perf_counter()
+    times = {}
+
+    # ---- 18.1: trie-nivc at rc = 100 on phase 14's trie store ----
+    tstore, lang, frames = trie
+    prover = psc.SuperNovaCycleProver(rc=TRIE_NIVC_RC, lang=lang, device=dev)
+    hk._SRS_MEM.clear()        # the keys as a new process sizes them
+    with WaveRecorder() as wrec, CommitRecorder() as rec:
+        reset_counts()
+        t0 = time.perf_counter()
+        pp = psc.sn_cycle_public_params(tstore, TRIE_NIVC_RC,
+                                        *prover.setup_funcs(), lang,
+                                        device=dev)
+        torch.cuda.synchronize()
+        times["trie public parameters"] = time.perf_counter() - t0
+        chunks = prover.chunks(tstore, frames)
+        pcs = [c[0].pc for c in chunks]
+        check(len(chunks) == 25 and sum(pc != 0 for pc in pcs) == 5,
+              f"{len(chunks)} steps, {sum(pc != 0 for pc in pcs)} of them "
+              f"coprocessor steps; expected 25 and 5")
+        check(witness_pool.uses_pool(prover.check_steps, len(chunks)),
+              "the fork pool is off")
+        reset_counts()
+        t0 = time.perf_counter()
+        _, proof, times["trie prove"] = torch_benches.trie_prove(
+            TRIE_NIVC_RC, tstore, lang, frames, dev)
+        # trie_prove verifies after the prove it times
+        times["trie verify"] = time.perf_counter() - t0 - times["trie prove"]
+        by = dict(M.launches_by_curve)
+        k1_launches = K.launches
+        n_commits = len([r for r in rec.records if r[1].n >= 64])
+        records = list(rec.records)
+    waves = wrec.waves
+    check(proof.n == 25, f"{proof.n} folding steps, expected 25")
+    out = tstore.hash_ptr(frames[-1].output[0])
+    check(tstore.fetch_num(frames[-1].output[0]) == TRIE_RESULT
+          and proof.zn[:2] == [out.tag, out.digest],
+          "the trie proof's output is not the reference's result")
+    want = {"bn254-g1": 2 * proof.n + 2 * pp.n_circuits,
+            "grumpkin": 2 * proof.n + 2}
+    check(by == want and sum(by.values()) == n_commits,
+          f"MSM launches by curve {by} in the prove and verify, for "
+          f"{n_commits} commits of 64 or more; expected {want} (W1, T1 and "
+          f"W2, T2 a step; W and E of each circuit and of the secondary)")
+    check(k1_launches == len(waves), f"{k1_launches} K1 launches for "
+          f"{len(waves)} batched waves")
+    w = proof.w1s[0].w
+    bad_w = PackedVec(w.arr.copy(), w.n, w.p)
+    bad_w[w.n // 2] = (bad_w[w.n // 2] + 1) % w.p
+    w1s = list(proof.w1s)
+    w1s[0] = nova.RelaxedWitness(bad_w, proof.w1s[0].e)
+    check(not psc.SuperNovaCycleProver.verify(
+        pp, dataclasses.replace(proof, w1s=w1s)),
+        "verify accepts a trie proof whose final W1 was changed")
+    # step k's W1 is commit 4k (W1, T1, W2 a step, T2 of the step before
+    # from step 1 on): the first coprocessor step's against plain
+    k = pcs.index(next(pc for pc in pcs if pc != 0))
+    key, vec, point = records[4 * k]
+    check(key.curve.name == "bn254-g1" and vec.n == pp.shapes1[pcs[k]]
+          .num_aux, f"commit {4 * k} is not step {k}'s W1")
+    plain, plain_ms = plain_commit(key.curve, key.table(),
+                                   vec.arr.view(np.uint32).reshape(vec.n, 8))
+    check(plain == point, f"step {k}'s W1 (circuit {pcs[k]}) differs from "
+          f"the plain version")
+    timed = kernel_alone(bound, records)
+    check(len(timed) == n_commits, f"{len(timed)} commits timed, expected "
+          f"{n_commits}")
+    print_classes("trie prove and verify", timed)
+    ms, bound_ms = sum(t[2] for t in timed), sum(t[3] for t in timed)
+    print(f"phase 18.1: torch_benches.trie_prove(rc={TRIE_NIVC_RC}) on phase "
+          f"14's trie store: {proof.n} steps (circuits {pcs}, fork pool), "
+          f"result {TRIE_RESULT}; public parameters cold "
+          f"{times['trie public parameters']:.1f} s (primary "
+          + ", ".join(f"pc {pc} {s.num_constraints} constraints"
+                      for pc, s in enumerate(pp.shapes1))
+          + f"; keys BN254 2^{len(pp.ck1.gens).bit_length() - 1}, Grumpkin "
+          f"2^{len(pp.ck2.gens).bit_length() - 1}), prove "
+          f"{times['trie prove']:.1f} s, verify {times['trie verify']:.1f} "
+          f"s; MSM launches {by} (prove and verify), K1 {k1_launches} "
+          f"(waves {waves}); a changed final W1 rejected; step {k}'s W1 "
+          f"(circuit {pcs[k]}, {vec.n} scalars) equals the plain version "
+          f"({plain_ms:.1f} ms, host clock); kernels {ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({bound_ms / ms:.1%})")
+    k1 = {"launches": k1_launches, "ms": 0.0, "plain_ms": 0.0,
+          "bound_ms": 0.0, "max_abs_err": 0}
+    if waves:
+        k1_ms, k1_plain, k1_bound, k1_err, _ = waves_alone(bound, gen, dev,
+                                                           waves)
+        k1.update(ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_bound,
+                  max_abs_err=k1_err)
+
+    # ---- 18.2: (sha256_ivc_1 1) through NovaProver(rc=10) ----
+    # (its 2^21 key from the SRS that 18.1 left in memory)
+    with CommitRecorder() as rec:
+        metrics.drain()
+        reset_counts()
+        _, ipp, iproof, iframes, times["sha256_ivc"] = \
+            torch_sha256_ivc.prove_sha256_ivc(1, dev, SHA256_IVC_RC)
+        iby = dict(M.launches_by_curve)
+        shape_s = metrics.values("nova.shape")
+        irecords = list(rec.records)
+    check(len(iframes) == 2 and len(iproof.steps) == 1,
+          f"{len(iframes)} frames, {len(iproof.steps)} steps; expected 2 "
+          f"and 1")
+    check(len(shape_s) == 1, "the inlined step's shape was not built")
+    check(iby == {"bn254-g1": 4}, f"MSM launches {iby} in the prove and "
+          f"verify, expected 4 on BN254 (W and T, then W and E)")
+    w = iproof.final_witness.w
+    bad_w = PackedVec(w.arr.copy(), w.n, w.p)
+    bad_w[w.n // 2] = (bad_w[w.n // 2] + 1) % w.p
+    check(not NovaProver.verify(ipp, nova.FoldingProof(
+        iproof.steps, nova.RelaxedWitness(bad_w, iproof.final_witness.e),
+        iproof.z0, iproof.zi)),
+        "verify accepts the sha256 IVC proof with its final W changed")
+    itimed = kernel_alone(bound, irecords)
+    ims, ibound = sum(t[2] for t in itimed), sum(t[3] for t in itimed)
+    s = ipp.shape
+    print(f"phase 18.2: torch_sha256_ivc.prove_sha256_ivc(1): "
+          f"NovaProver(rc={SHA256_IVC_RC}, cuda), {len(iframes)} frames, "
+          f"{len(iproof.steps)} step; the inlined step {s.num_constraints} "
+          f"constraints, {s.num_aux} aux, its shape cold in "
+          f"{shape_s[0]:.1f} s; key 2^{len(ipp.ck.gens).bit_length() - 1}; "
+          f"evaluate, prove and verify {times['sha256_ivc']:.1f} s; MSM "
+          f"launches {iby}; a changed final W rejected; kernels "
+          f"{ims:.3f} ms, bound {ibound:.3f} ms ({ibound / ims:.1%})")
+
+    # ---- 18.3: the synthesis bench at rc = 100 on phase 2's store ----
+    with WaveRecorder() as wrec:
+        reset_counts()
+        rec18, w = torch_benches.bench_synthesis(SYNTHESIS_RC, dev, store)
+        torch.cuda.synchronize()
+        s_launches = K.launches
+    times["synthesis"] = rec18["seconds"]
+    check(rec18["frames"] == SYNTHESIS_RC and len(w) > 0,
+          f"the synthesis bench's line {rec18}")
+    check(s_launches == len(wrec.waves), f"{s_launches} K1 launches for "
+          f"{len(wrec.waves)} batched waves")
+    print(f"phase 18.3: torch_benches.bench_synthesis({SYNTHESIS_RC}) on "
+          f"phase 2's store: one MultiFrame's witness ({len(w)} entries) in "
+          f"{rec18['seconds']:.3f} s; its hydration {len(wrec.waves)} K1 "
+          f"waves {wrec.waves}")
+    if wrec.waves:
+        sk = waves_alone(bound, gen, dev, wrec.waves)
+        for key_, v in zip(("ms", "plain_ms", "bound_ms"), sk[:3]):
+            k1[key_] += v
+        k1["launches"] += s_launches
+        k1["max_abs_err"] = max(k1["max_abs_err"], sk[3])
+
+    # ---- 18.4: itcalc's default table ----
+    print("phase 18.4: torch_itcalc.py's default table (setup 7, loop 7):")
+    print(torch_itcalc.table(torch_itcalc.Prog(7, 7)))
+
+    times["phase 18"] = time.perf_counter() - t_start
+    print("phase 18: the entry points, seconds (host clock): "
+          + ", ".join(f"{k} {v:.1f} (predicted {ENTRY_PREDICTED[k]})"
+                      for k, v in times.items()))
+    return {"k1": k1,
+            "k6": {"launches": len(timed) + len(itimed), "ms": ms + ims,
+                   "bound_ms": bound_ms + ibound, "plain_ms": plain_ms},
+            "times": times}
+
+
 def imad_rate(sms: int):
     """(32-bit IMAD per second, SM clock in MHz under that load) from
     csrc/imad_rate.cu: CUDA events over IMAD_LAUNCHES back-to-back
@@ -3322,13 +3549,14 @@ def main() -> int:
           f"s), {len(frames) / e2e:.2f} frames/s")
 
     # ---- phase 11: the Nova cycle, its compression and verifiers ----
-    nova_cycle = phase11(bound, store, frames)
+    nova_cycle = phase11(bound, store, frames[:PHASE11_FRAMES])
     elapsed("11", t_all)
 
     # ---- phase 12: NIVC, its compression and verifiers ----
     nivc = phase12(bound, store, frames[:PHASE12_FRAMES])
     elapsed("12", t_all)
-    for name, part in (("the Nova cycle", nova_cycle),
+    for name, part in ((f"the Nova cycle (its first {PHASE11_FRAMES} "
+                        f"frames)", nova_cycle),
                        (f"NIVC (its first {PHASE12_FRAMES} frames)", nivc)):
         print(f"fib(100) through {name}: prove {part['t_prove']:.1f} s + "
               f"compress {part['t_compress']:.1f} s + verify "
@@ -3387,25 +3615,40 @@ def main() -> int:
           + " / ".join(f"{t[f'stream compress {i}']:.1f}" for i in (1, 2, 3))
           + f" s; phase 17 {t['phase 17']:.1f} s")
 
+    # ---- phase 18: the example and bench entry points ----
+    entry = phase18(bound, gen, dev, coproc["trie"], store)
+    elapsed("18", t_all)
+    t = entry["times"]
+    print(f"the entry points: the trie program through the SuperNova cycle "
+          f"(rc={TRIE_NIVC_RC}, 25 steps): public parameters "
+          f"{t['trie public parameters']:.1f} s, prove {t['trie prove']:.1f} "
+          f"s + verify {t['trie verify']:.1f} s; (sha256_ivc_1 1) through "
+          f"NovaProver(rc={SHA256_IVC_RC}): {t['sha256_ivc']:.1f} s; the "
+          f"synthesis bench at rc={SYNTHESIS_RC} {t['synthesis']:.3f} s; "
+          f"phase 18 {t['phase 18']:.1f} s")
+
     for part in (fold, cycle, comp, nova_cycle, nivc, cli["k6"],
-                 coproc["k6"], circ["k6"], memo["k6"], chain["k6"]):
+                 coproc["k6"], circ["k6"], memo["k6"], chain["k6"],
+                 entry["k6"]):
         for k in ("launches", "ms", "bound_ms"):
             msm[k] += part[k]
-    for part in (cli["k1"], coproc["k1"], memo["k1"], chain["k1"]):
+    for part in (cli["k1"], coproc["k1"], memo["k1"], chain["k1"],
+                 entry["k1"]):
         for k in ("launches", "ms", "bound_ms"):
             sparse[k] += part[k]
-    for part in (coproc["k1"], memo["k1"], chain["k1"]):
+    for part in (coproc["k1"], memo["k1"], chain["k1"], entry["k1"]):
         sparse["plain_ms"] += part["plain_ms"]
         sparse["max_abs_err"] = max(sparse["max_abs_err"],
                                     part["max_abs_err"])
     for part in (cycle, nova_cycle, nivc, coproc["k6"], circ["k6"],
-                 memo["k6"]):
+                 memo["k6"], entry["k6"]):
         msm["plain_ms"] += part["plain_ms"]
     msm["plain_of"] = ("the 2^20 commit, step 0's W2 and step 1's T2 of "
                        "the cycle fold, step 0's W2 of the Nova cycle, a "
                        "2^12 HyperKZG commit of NIVC's compress, the "
                        "sha256 step's W1, the circom step's W, the memoset "
-                       "cycle's step 0 W1")
+                       "cycle's step 0 W1, the trie program's first "
+                       "coprocessor step's W1")
 
     print(json.dumps({"kernels": [sparse, dense, msm, folded]}))
     print(f"total {time.perf_counter() - t_all:.1f} s")

@@ -1,12 +1,13 @@
 """The reference's headline workload: the infinite-stream Fibonacci
 program (benches/common/fib.rs), run for ``fib_limit(n, rc)`` frames,
-the trie coprocessor's program (benches/trie_nivc.rs), and the sample
-toplevel of memoset coroutines (src/lem/coroutine/toplevel.rs:273-350).
+the trie coprocessor's program (benches/trie_nivc.rs), the end-to-end
+bench's program (benches/end2end.rs), and the sample toplevel of memoset
+coroutines (src/lem/coroutine/toplevel.rs:273-350).
 
 Copies of the programs and frame model of the JAX package's
 ``examples/fib.py`` and ``examples/benches.py``, and of the LEM of its
-``tests/test_toplevel.py``, so that the port's smoke run needs nothing
-outside this package.
+``tests/test_toplevel.py``, so that the port's smoke run and scripts
+need nothing outside this package.
 """
 
 FIB_PROGRAM = """
@@ -49,6 +50,24 @@ TRIE_PROGRAM = """
       (fib-trie (.lurk.trie.insert fib-trie 50 (fib 50))))
   (+ (num (.lurk.trie.lookup fib-trie 40)) (num (.lurk.trie.lookup fib-trie 50))))"""
 TRIE_RESULT = 12688603180
+
+
+def go_base(a: int, b: int) -> str:
+    """The end-to-end bench's program (benches/end2end.rs:29-47, the JAX
+    package's ``examples/benches.py:_go_base``): ``(foo a b)`` loops b
+    times. ``go_base(10, 16)`` evaluates in 443 frames."""
+    return f"""
+(let ((foo (lambda (a b)
+              (letrec ((aux (lambda (i a x)
+                               (if (= i b)
+                                     x
+                                     (let ((x (+ x a))
+                                            (a (+ a (* b 2))))
+                                       (aux (+ i 1) a x))))))
+                       (let ((x (+ (* a b) 4)))
+                         (aux 0 a x))))))
+  (foo {a} {b}))
+"""
 
 
 def sample_toplevel():

@@ -27,10 +27,13 @@ def to_limbs(v: int) -> np.ndarray:
 
 
 def points_from_limbs(out: np.ndarray) -> List[Tuple[int, int]]:
-    """``uint64[n, 8]`` -> [(x, y)]."""
-    words = np.ascontiguousarray(out, dtype="<u8").view("<u4")
-    coords = F.words_to_ints(words.reshape(-1, 2, 8))
-    return list(zip(coords[:, 0].tolist(), coords[:, 1].tolist()))
+    """``uint64[n, 8]`` -> [(x, y)], each coordinate from its 32
+    little-endian bytes (a few times faster than numpy object arrays at
+    an SRS's 2^21 points)."""
+    b = np.ascontiguousarray(out, dtype="<u8").tobytes()
+    fb = int.from_bytes
+    return [(fb(b[i:i + 32], "little"), fb(b[i + 32:i + 64], "little"))
+            for i in range(0, len(b), 64)]
 
 
 def r2(modulus: int) -> np.ndarray:

@@ -119,9 +119,14 @@ def digits_from_words(words: np.ndarray, c_bits: int):
 
 def points_to_words(points: Sequence[Affine]) -> np.ndarray:
     """Affine points -> canonical ``uint32[n, 2, 8]``; the point at
-    infinity becomes an all-zero row, which the MSM skips."""
-    coords = [(0, 0) if pt is None else pt for pt in points]
-    return F.ints_to_words(coords).reshape(len(points), 2, 8)
+    infinity becomes an all-zero row, which the MSM skips. Each
+    coordinate goes through its 32 little-endian bytes (a few times
+    faster than numpy object arrays at a key's 2^21 points)."""
+    zero = bytes(64)
+    buf = b"".join(zero if pt is None else
+                   pt[0].to_bytes(32, "little") + pt[1].to_bytes(32, "little")
+                   for pt in points)
+    return np.frombuffer(buf, dtype="<u4").reshape(len(points), 2, 8).copy()
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 time (every module imported in a fresh interpreter) and in its source
 (every import statement of the package, of chip_smoke.py and of the
 port's scripts); the circom coprocessor's, the memoset coroutines', the
-chain server's, the Z stores' and foil's modules among them."""
+chain server's, the Z stores' and foil's modules and the example and
+bench entry points among them."""
 
 import ast
 import pathlib
@@ -14,10 +15,14 @@ from test_torch_field import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "lurk_tpu_torch"
+# the example and bench entry points: the ports of examples/*.py
+ENTRY_SCRIPTS = ("torch_itcalc", "torch_fib", "torch_benches",
+                 "torch_sha256_ivc", "torch_tp_table")
 SOURCES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_host_timings.py",
     ROOT / "scripts" / "torch_sha256_nivc.py",
-    ROOT / "scripts" / "torch_fib_e2e.py"]
+    ROOT / "scripts" / "torch_fib_e2e.py"] + [
+    ROOT / "scripts" / f"{name}.py" for name in ENTRY_SCRIPTS]
 
 
 def _module_names():
@@ -115,3 +120,20 @@ def test_the_slice_14_entry_points_are_in_checked_modules(module, attr):
         obj = getattr(obj, part)
     assert callable(obj)
     assert f"lurk_tpu_torch.{module}" in set(_module_names())
+
+
+def test_the_entry_point_scripts_import_no_jax_at_run_time():
+    """The example and bench scripts, imported in a fresh interpreter,
+    load neither jax nor the JAX package."""
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'scripts')!r})\n"
+        f"for m in {list(ENTRY_SCRIPTS)!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'lurk_tpu')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
