@@ -1396,7 +1396,7 @@ class WaveRecorder:
         from lurk_tpu_torch.poseidon import kernel as K
         from lurk_tpu_torch.store import core
         self.waves = waves = []
-        self.core, self.hash_batch = core, K.hash_batch
+        self.core, self.hash_batch = core, core.hash_batch
 
         def recording(field, arity, pres, device=None):
             waves.append((arity, len(pres)))

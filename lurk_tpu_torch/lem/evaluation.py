@@ -13,6 +13,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 from ..store.core import TUPLE2, Ptr, Store
 from ..symbol import Symbol
 from ..tags import ContTag, ExprTag
+from ..utils import tracing
 from . import ir
 from .eval_step import eval_step, make_cprocs_funcs, make_eval_step
 from .interpreter import Channel, Frame, Interpreter, dummy_channel
@@ -172,8 +173,11 @@ def evaluate_with_env_and_cont(lang_setup: Optional[LangSetup], expr: Ptr,
                                ) -> List[Frame]:
     step, cprocs, lang = _setup(lang_setup)
     channel = channel or dummy_channel()
-    return build_frames(step, cprocs, [expr, env, cont], store, limit,
-                        lang, channel)
+    with tracing.span("lem.evaluate") as s:
+        frames = build_frames(step, cprocs, [expr, env, cont], store, limit,
+                              lang, channel)
+        s.attrs["frames"] = len(frames)
+    return frames
 
 
 def evaluate_with_env(lang_setup: Optional[LangSetup], expr: Ptr, env: Ptr,

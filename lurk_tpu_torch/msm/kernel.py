@@ -34,6 +34,7 @@ import torch
 from ..curves.weierstrass import Affine, Curve
 from ..device import resolve_device
 from ..ops import field as F
+from ..utils import tracing
 
 # The kernel's window width, as ``csrc/msm.cu:kC``: 16 windows of 2^15
 # buckets for 256-bit scalars.
@@ -249,8 +250,9 @@ class MsmTable:
                              f"bases")
         if m == 0:
             words = torch.zeros((1, 8), dtype=torch.int32)
-        return msm_words(self.prefix(words.shape[0]),
-                         words.to(self.device).contiguous())
+        table = self.prefix(words.shape[0])
+        with tracing.span("msm.msm_words", scalars=m, rows=table.n_points):
+            return msm_words(table, words.to(self.device).contiguous())
 
     def prefix(self, m: int) -> "MsmTable":
         """The table of the first ``m`` rows (a view, no copy)."""

@@ -41,6 +41,7 @@ from typing import List, Sequence
 from ..curves.weierstrass import Affine, Curve
 from ..hostlib import msm as host_msm
 from ..hostlib.fastpack import pack_ints
+from ..utils import tracing
 from .transcript import Transcript
 
 _HOST_MSM_FROM = 64
@@ -61,12 +62,23 @@ def _u_generator(curve: Curve) -> Affine:
 
 def _basis_msm(curve: Curve, gens: Sequence[Affine]):
     """Σ s_j gens[j] over the first n generators, as a function of the
-    n scalars (canonical, below the group order)."""
+    n scalars (canonical, below the group order). Spans: ``ipa.pack_gens``
+    and each MSM's ``ipa.msm``."""
     n = len(gens)
     if n < _HOST_MSM_FROM:
-        return lambda scalars: curve.pippenger(list(scalars), list(gens))
-    points = host_msm.pack_points(gens)
-    return lambda scalars: host_msm.msm(curve, pack_ints(scalars), points)
+        def run(scalars):
+            return curve.pippenger(list(scalars), list(gens))
+    else:
+        with tracing.span("ipa.pack_gens", n=n):
+            points = host_msm.pack_points(gens)
+
+        def run(scalars):
+            return host_msm.msm(curve, pack_ints(scalars), points)
+
+    def msm(scalars):
+        with tracing.span("ipa.msm", n=n):
+            return run(scalars)
+    return msm
 
 
 def _fold_scalars(v: Sequence[int], u: int, u_inv: int, q: int,

@@ -49,7 +49,7 @@ from ..hostlib.r1cs import PackedVec
 from ..msm.kernel import MsmTable, to_affine
 from ..parallel import sharding
 from ..r1cs.cs import LC, ConstraintSystem
-from ..utils import metrics
+from ..utils import metrics, tracing
 from .transcript import Transcript
 
 # Commits of at least this many scalars go to the table or the host C++
@@ -116,11 +116,14 @@ class CommitmentKey:
         nova.rs:56-71); other curves use hash-derived generators. The
         prover's labels are ``b"lurk_tpu.ck." + curve.name`` and its
         sizes powers of two (``proof/supernova_cycle.py:138-147``)."""
-        if curve.name == "bn254-g1":
-            from .hyperkzg import load_srs
-            return CommitmentKey(curve, load_srs(n).powers, device)
-        from .params_cache import load_generators
-        return CommitmentKey(curve, load_generators(curve, label, n), device)
+        with tracing.span("params.srs", n=n):
+            if curve.name == "bn254-g1":
+                from .hyperkzg import load_srs
+                gens = load_srs(n).powers
+            else:
+                from .params_cache import load_generators
+                gens = load_generators(curve, label, n)
+        return CommitmentKey(curve, gens, device)
 
     def table(self) -> MsmTable:
         """The key's MSM table on its device, built at first use."""

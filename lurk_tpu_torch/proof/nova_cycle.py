@@ -46,7 +46,7 @@ from ..fields import FieldSpec
 from ..hostlib import r1cs as hr
 from ..hostlib.r1cs import PackedVec
 from ..r1cs.cs import ConstraintSystem
-from ..utils import metrics
+from ..utils import metrics, tracing
 from .augmented import AugmentedCfg, AugmentedWitness, synthesize_augmented
 from .nova import (
     CommitmentKey, R1CSInstance, R1CSShape, RelaxedInstance,
@@ -165,8 +165,9 @@ class CyclePublicParams:
             synthesize_augmented(cs2, cfg2, w2)
             return R1CSShape(cs2)
 
-        shape1 = cached_shape(f"{cache_base}_cyc1", field1, synth1)
-        shape2 = cached_shape(f"{cache_base}_cyc2", field2, synth2)
+        with tracing.span("params.shapes", circuits=2):
+            shape1 = cached_shape(f"{cache_base}_cyc1", field1, synth1)
+            shape2 = cached_shape(f"{cache_base}_cyc2", field2, synth2)
         digest = hashlib.sha256(
             (shape1.digest + ":" + shape2.digest).encode()).hexdigest()
         pp_digest = int(digest, 16) & ((1 << 124) - 1)

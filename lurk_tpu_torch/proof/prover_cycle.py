@@ -35,6 +35,7 @@ from ..lem.eval_step import make_eval_step
 from ..lem.interpreter import Frame
 from ..store.core import Ptr, Store
 from ..utils import metrics
+from ..utils import tracing
 from ..utils.tracing import instrument
 from . import spartan, witness_pool
 from .multiframe import MultiFrame
@@ -202,6 +203,7 @@ def _side_pp(pp: CyclePublicParams, which: int) -> PublicParams:
     return PublicParams(pp.shape2, pp.curve2, pp.ck2)
 
 
+@instrument("nova_cycle.compress")
 def compress_cycle(pp: CyclePublicParams, proof: CycleProof
                    ) -> CompressedCycleProof:
     """Spartan over the primary accumulator (HyperKZG openings on
@@ -213,7 +215,7 @@ def compress_cycle(pp: CyclePublicParams, proof: CycleProof
                              proof.w2_folded)
 
     with ThreadPoolExecutor(max_workers=1) as ex:
-        fut2 = ex.submit(_secondary)
+        fut2 = ex.submit(tracing.carried(_secondary))
         sp1 = spartan.prove(_side_pp(pp, 1), proof.u1, proof.w1)
         sp2 = fut2.result()
     return CompressedCycleProof(proof.n, list(proof.z0), list(proof.zn),
@@ -221,6 +223,7 @@ def compress_cycle(pp: CyclePublicParams, proof: CycleProof
                                 proof.comm_t_last, sp1, sp2)
 
 
+@instrument("nova_cycle.verify_compressed")
 def verify_compressed_cycle(pp: CyclePublicParams,
                             cp: CompressedCycleProof) -> bool:
     if not chain_heads_ok(pp, cp):

@@ -37,6 +37,7 @@ from ..lem.interpreter import Frame
 from ..r1cs.gadgets import alloc_num
 from ..store.core import Ptr, Store
 from ..utils import metrics
+from ..utils import tracing
 from ..utils.tracing import instrument
 from . import spartan, witness_pool
 from .multiframe import io_scalars, pad_frames
@@ -215,6 +216,7 @@ def _side_pp2(pp: SnCyclePublicParams) -> PublicParams:
     return PublicParams(pp.shape2, pp.curve2, pp.ck2)
 
 
+@instrument("supernova_cycle.compress")
 def compress_sn_cycle(pp: SnCyclePublicParams, proof: SnCycleProof
                       ) -> CompressedSnCycleProof:
     """Spartan over each primary accumulator (HyperKZG openings on
@@ -226,7 +228,7 @@ def compress_sn_cycle(pp: SnCyclePublicParams, proof: SnCycleProof
                              proof.w2_folded)
 
     with ThreadPoolExecutor(max_workers=1) as ex:
-        fut2 = ex.submit(_secondary)
+        fut2 = ex.submit(tracing.carried(_secondary))
         spartans1 = [spartan.prove(_side_pp1(pp, pc), proof.u1s[pc],
                                    proof.w1s[pc])
                      for pc in range(pp.n_circuits)]
@@ -237,6 +239,7 @@ def compress_sn_cycle(pp: SnCyclePublicParams, proof: SnCycleProof
         spartans1, sp2)
 
 
+@instrument("supernova_cycle.verify_compressed")
 def verify_compressed_sn_cycle(pp: SnCyclePublicParams,
                                cp: CompressedSnCycleProof) -> bool:
     if cp.n <= 0 or len(cp.u1s) != pp.n_circuits:

@@ -45,7 +45,7 @@ from typing import List, Optional, Tuple
 from ..curves.weierstrass import Affine
 from ..hostlib import r1cs as hr
 from ..hostlib import spartan as hsc
-from ..utils import metrics
+from ..utils import metrics, tracing
 from . import hyperkzg as hk
 from . import ipa
 from .mle import next_pow2, pad_pow2, sumcheck_verify
@@ -158,8 +158,13 @@ def prove(pp: PublicParams, inst: RelaxedInstance,
                         w_eval, ipa_w, ipa_e)
 
 
+@tracing.instrument("spartan.verify")
 def verify(pp: PublicParams, inst: RelaxedInstance,
            proof: SpartanProof) -> bool:
+    """Spans: ``spartan.verify.sumchecks`` (both sumchecks' replay),
+    ``spartan.verify.matrix_evals`` (the matrices and Z~ at (rx, ry))
+    and ``spartan.verify.pcs`` (the HyperKZG or IPA check, the SRS's
+    load included)."""
     shape = pp.shape
     p = shape.p
     n_half, m_pad = _dims(shape)
@@ -177,58 +182,63 @@ def verify(pp: PublicParams, inst: RelaxedInstance,
             tr.absorb_scalar(v)
         return tr.squeeze() % p
 
-    try:
-        e1, rx = sumcheck_verify(0, proof.sc1_polys, 3, p, chal)
-    except ValueError:
-        return False
-    az_r, bz_r, cz_r, e_r = (v % p for v in proof.claims)
-    # eq(tau, rx)
-    eq_t = 1
-    for t, x in zip(tau, rx):
-        eq_t = eq_t * (t * x + (1 - t) * (1 - x)) % p
-    if e1 != eq_t * (az_r * bz_r - (inst.u % p) * cz_r - e_r) % p:
-        return False
-    for v in (az_r, bz_r, cz_r, e_r):
-        tr.absorb_scalar(v)
-    r = tr.squeeze() % p
-    r2 = r * r % p
-    claim2 = (az_r + r * bz_r + r2 * cz_r) % p
-    try:
-        e2, ry = sumcheck_verify(claim2, proof.sc2_polys, 2, p, chal)
-    except ValueError:
-        return False
+    with tracing.span("spartan.verify.sumchecks"):
+        try:
+            e1, rx = sumcheck_verify(0, proof.sc1_polys, 3, p, chal)
+        except ValueError:
+            return False
+        az_r, bz_r, cz_r, e_r = (v % p for v in proof.claims)
+        # eq(tau, rx)
+        eq_t = 1
+        for t, x in zip(tau, rx):
+            eq_t = eq_t * (t * x + (1 - t) * (1 - x)) % p
+        if e1 != eq_t * (az_r * bz_r - (inst.u % p) * cz_r - e_r) % p:
+            return False
+        for v in (az_r, bz_r, cz_r, e_r):
+            tr.absorb_scalar(v)
+        r = tr.squeeze() % p
+        r2 = r * r % p
+        claim2 = (az_r + r * bz_r + r2 * cz_r) % p
+        try:
+            e2, ry = sumcheck_verify(claim2, proof.sc2_polys, 2, p, chal)
+        except ValueError:
+            return False
 
-    chi_rx = hsc.chi_table_pv(rx, p)
-    a_eval, b_eval, c_eval = hsc.matrix_evals(
-        shape, chi_rx, hsc.chi_table_pv(ry, p), n_half)
-    chi_ry1 = hsc.chi_table(ry[1:], p)
-    m_eval = (a_eval + r * b_eval + r2 * c_eval) % p
-    # Z~(ry) from the public part + claimed W opening
-    pub = _pub_vector(shape, inst, n_half)
-    pub_eval = sum(v * c for v, c in zip(pub[:shape.num_inputs],
-                                         chi_ry1[:shape.num_inputs])) % p
-    w_eval = proof.w_eval % p
-    z_eval = ((1 - ry[0]) * pub_eval + ry[0] * w_eval) % p
+    with tracing.span("spartan.verify.matrix_evals"):
+        chi_rx = hsc.chi_table_pv(rx, p)
+        a_eval, b_eval, c_eval = hsc.matrix_evals(
+            shape, chi_rx, hsc.chi_table_pv(ry, p), n_half)
+        chi_ry1 = hsc.chi_table(ry[1:], p)
+        m_eval = (a_eval + r * b_eval + r2 * c_eval) % p
+        # Z~(ry) from the public part + claimed W opening
+        pub = _pub_vector(shape, inst, n_half)
+        pub_eval = sum(v * c for v, c in zip(pub[:shape.num_inputs],
+                                             chi_ry1[:shape.num_inputs])) % p
+        w_eval = proof.w_eval % p
+        z_eval = ((1 - ry[0]) * pub_eval + ry[0] * w_eval) % p
     if e2 != m_eval * z_eval % p:
         return False
     tr.absorb_scalar(w_eval)
-    if _uses_kzg(pp):
-        srs = hk.load_srs(max(n_half, m_pad))
-        if proof.hkzg_joint is not None:
-            return hk.verify_batch(
-                srs, [(inst.comm_w, ry[1:], w_eval), (inst.comm_e, rx, e_r)],
-                proof.hkzg_joint, tr)
-        if proof.hkzg_w is None or proof.hkzg_e is None:
+    with tracing.span("spartan.verify.pcs"):
+        if _uses_kzg(pp):
+            srs = hk.load_srs(max(n_half, m_pad))
+            if proof.hkzg_joint is not None:
+                return hk.verify_batch(
+                    srs, [(inst.comm_w, ry[1:], w_eval),
+                          (inst.comm_e, rx, e_r)], proof.hkzg_joint, tr)
+            if proof.hkzg_w is None or proof.hkzg_e is None:
+                return False
+            return (hk.verify(srs, inst.comm_w, ry[1:], w_eval,
+                              proof.hkzg_w, tr)
+                    and hk.verify(srs, inst.comm_e, rx, e_r, proof.hkzg_e,
+                                  tr))
+        if proof.ipa_w is None or proof.ipa_e is None:
             return False
-        return (hk.verify(srs, inst.comm_w, ry[1:], w_eval, proof.hkzg_w, tr)
-                and hk.verify(srs, inst.comm_e, rx, e_r, proof.hkzg_e, tr))
-    if proof.ipa_w is None or proof.ipa_e is None:
-        return False
-    if not ipa.verify(pp.curve, pp.ck.gens, inst.comm_w, chi_ry1,
-                      w_eval, proof.ipa_w, tr):
-        return False
-    return ipa.verify(pp.curve, pp.ck.gens, inst.comm_e, chi_rx.ints(),
-                      e_r, proof.ipa_e, tr)
+        if not ipa.verify(pp.curve, pp.ck.gens, inst.comm_w, chi_ry1,
+                          w_eval, proof.ipa_w, tr):
+            return False
+        return ipa.verify(pp.curve, pp.ck.gens, inst.comm_e, chi_rx.ints(),
+                          e_r, proof.ipa_e, tr)
 
 
 # ---------------------------------------------------------------------------

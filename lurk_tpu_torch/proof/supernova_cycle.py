@@ -34,7 +34,7 @@ from ..fields import FieldSpec
 from ..hostlib import r1cs as hr
 from ..hostlib.r1cs import PackedVec
 from ..r1cs.cs import ConstraintSystem
-from ..utils import metrics
+from ..utils import metrics, tracing
 from .nova import (
     CommitmentKey, R1CSInstance, R1CSShape, RelaxedInstance,
     RelaxedWitness, _absorb_relaxed, check_relaxed, cross_term,
@@ -147,14 +147,15 @@ class SnCyclePublicParams:
             synthesize_sn_secondary(cs2, cfg2, w2)
             return R1CSShape(cs2)
 
-        if cache_base is not None:
-            shapes1 = [cached_shape(f"{cache_base}_sn{pc}", field1,
-                                    synth1(pc)) for pc in range(n)]
-            shape2 = cached_shape(f"{cache_base}_snsec_{n}", field2,
-                                  synth2)
-        else:
-            shapes1 = [synth1(pc)() for pc in range(n)]
-            shape2 = synth2()
+        with tracing.span("params.shapes", circuits=n + 1):
+            if cache_base is not None:
+                shapes1 = [cached_shape(f"{cache_base}_sn{pc}", field1,
+                                        synth1(pc)) for pc in range(n)]
+                shape2 = cached_shape(f"{cache_base}_snsec_{n}", field2,
+                                      synth2)
+            else:
+                shapes1 = [synth1(pc)() for pc in range(n)]
+                shape2 = synth2()
         h = hashlib.sha256(
             (":".join(s.digest for s in shapes1)
              + "|" + shape2.digest).encode()).hexdigest()

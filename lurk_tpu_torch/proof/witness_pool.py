@@ -29,9 +29,11 @@ from ..hostlib.fastpack import pack_ints, unpack_ints
 from ..r1cs.cs import ConstraintSystem
 from ..r1cs.gadgets import Num, alloc_num
 from ..store.core import Store
+from ..utils import tracing
 
-# (field, step function, jobs) while a pool runs: the forked workers
-# read it, so nothing but the job's index is pickled
+# (field, step function, jobs, the fork span's context) while a pool
+# runs: the forked workers read it, so nothing but the job's index is
+# pickled
 _POOL_ARGS: Optional[tuple] = None
 
 
@@ -67,26 +69,44 @@ def step_witnesses(store: Store, step_fn: Callable,
                    check_steps: bool) -> Iterator[Optional[tuple]]:
     """One item a job ``(z_in, step_aux)``, in order: ``(aux segment,
     output values)`` from the pool, or None each (inline synthesis)
-    when the pool does not run."""
+    when the pool does not run.
+
+    Spans: ``witness_pool.fork`` (creating the pool and submitting every
+    job, which forks the workers), ``witness_pool.synthesize`` in the
+    worker (job k's synthesis, with its CPU seconds; its records come
+    back with the result) and ``witness_pool.wait`` (taking job k's
+    result and unpacking it)."""
     if not uses_pool(check_steps, len(jobs)):
         for _ in jobs:
             yield None
         return
     global _POOL_ARGS
     store.hydrate_z_cache()           # no hashing may be left to a child
-    _POOL_ARGS = (store.field, step_fn, jobs)
     ctx = multiprocessing.get_context("fork")
     n_proc = min(len(jobs), max(1, (ctx.cpu_count() or 2) - 1))
-    pool = ProcessPoolExecutor(n_proc, mp_context=ctx)
+    pool = None
     try:
-        for packed, outs in pool.map(_worker, range(len(jobs))):
-            yield unpack_segment(packed), outs
+        with tracing.span("witness_pool.fork", workers=n_proc,
+                          tasks=len(jobs)):
+            _POOL_ARGS = (store.field, step_fn, jobs, tracing.context())
+            pool = ProcessPoolExecutor(n_proc, mp_context=ctx)
+            futures = [pool.submit(_worker, k) for k in range(len(jobs))]
+        for k, fut in enumerate(futures):
+            with tracing.span("witness_pool.wait", step=k):
+                packed, outs, recs = fut.result()
+                tracing.merge(recs)
+                seg = unpack_segment(packed)
+            yield seg, outs
     finally:
-        pool.shutdown(cancel_futures=True)
+        if pool is not None:
+            pool.shutdown(cancel_futures=True)
         _POOL_ARGS = None
 
 
 def _worker(k: int):
-    field, step_fn, jobs = _POOL_ARGS
+    field, step_fn, jobs, span_ctx = _POOL_ARGS
     z_in, step_aux = jobs[k]
-    return step_witness(field, step_fn, z_in, step_aux)
+    with tracing.adopt(span_ctx), \
+            tracing.span("witness_pool.synthesize", cpu=True, step=k):
+        packed, outs = step_witness(field, step_fn, z_in, step_aux)
+    return packed, outs, tracing.take()

@@ -17,8 +17,6 @@ hashing during interpretation (pointers.rs:189-197 "delay ZPtrs").
 
 from __future__ import annotations
 
-from ..utils.tracing import instrument as _trace_instrument
-
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -27,9 +25,10 @@ from ..device import resolve_device
 from ..fields import FieldSpec
 from ..parallel import sharding
 from ..poseidon.host import hash_preimage
-from ..poseidon.kernel import hash_batch
+from ..poseidon import kernel as poseidon_kernel
 from ..symbol import Symbol, lurk_sym
 from ..tags import ContTag, ExprTag
+from ..utils import tracing
 
 # IVal kinds
 ATOM = 0
@@ -37,6 +36,14 @@ TUPLE2 = 1
 TUPLE3 = 2
 TUPLE4 = 3
 COMPACT = 4
+
+
+def hash_batch(field: FieldSpec, arity: int, pres: Sequence[Sequence[int]],
+               device=None) -> List[int]:
+    """One wave of preimages hashed as a batch on ``device`` (K1), in
+    the span ``store.hash_batch``."""
+    with tracing.span("store.hash_batch", arity=arity, hashes=len(pres)):
+        return poseidon_kernel.hash_batch(field, arity, pres, device=device)
 
 
 class Ptr(NamedTuple):
@@ -256,7 +263,7 @@ class Store:
     def hash_ptr(self, ptr: Ptr) -> ZPtr:
         return ZPtr(ptr.tag, self.hash_ptr_val(ptr.val))
 
-    @_trace_instrument("store.hydrate_z_cache")
+    @tracing.instrument("store.hydrate_z_cache")
     def hydrate_z_cache(self) -> None:
         """Batched hydration: levelize the dehydrated queue by DAG depth and
         hash each (level, arity) wave as one device batch."""
